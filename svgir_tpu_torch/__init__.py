@@ -1,5 +1,6 @@
-"""svgir_tpu_torch: the SVG-IR surfel rasterizer and stage-1 trainer in
-PyTorch, with its blend and binning kernels written in CUDA C++ for Hopper
+"""svgir_tpu_torch: the SVG-IR surfel rasterizer, the stage-1 trainer and
+the stage-2 (deferred-PBR) step and eval render in PyTorch, with their
+binning, blend and env-map lookup kernels written in CUDA C++ for Hopper
 (``csrc/``, bound through ``kernels/``).
 
 The package mirrors the layout of ``svgir_tpu`` and is held to it by the
@@ -7,8 +8,9 @@ The package mirrors the layout of ``svgir_tpu`` and is held to it by the
 ``svgir_tpu``.
 
 Entry points (``init_from_points``, ``make_camera``/``look_at_camera``,
-``make_train_step``, ``train_stage1``) put their tensors on ``cuda`` unless
-the caller passes ``device="cpu"``.
+``make_train_step``, ``train_stage1``, ``direct_light_map_init``,
+``make_svgss_train_step``, ``train_stage2``) put their tensors on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 import torch

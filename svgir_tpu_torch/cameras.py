@@ -64,6 +64,20 @@ class Camera:
     def focal_y(self) -> float:
         return fov2focal(self.fovy, self.height)
 
+    def world_directions(self) -> torch.Tensor:
+        """Unit world-space ray directions per pixel, [3, H, W]
+        (cameras.py:96-108)."""
+        kw = dict(dtype=self.world_view.dtype, device=self.device)
+        v, u = torch.meshgrid(torch.arange(self.height, **kw),
+                              torch.arange(self.width, **kw), indexing="ij")
+        dirs = torch.stack([(u - self.width / 2) / self.focal_x,
+                            (v - self.height / 2) / self.focal_y,
+                            torch.ones_like(u)], dim=0)
+        dirs = dirs / torch.linalg.norm(dirs, dim=0, keepdim=True)
+        c2w_rot = self.world_view[:3, :3].T
+        return (c2w_rot @ dirs.reshape(3, -1)).reshape(3, self.height,
+                                                       self.width)
+
 
 def _tensor(x, device) -> Optional[torch.Tensor]:
     if x is None:

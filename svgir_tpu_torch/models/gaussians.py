@@ -7,7 +7,9 @@ bool mask over a fixed capacity) and "stats".  ``params_from_jax`` and
 ``params_to_numpy`` carry the JAX state (as numpy arrays) across so both
 packages compute the same thing in the tests.
 
-Densification (``densify_and_prune``, ``reset_opacity``,
+The stage-2 groups (per-vertex base color, roughness and normal offsets,
+the baked radiances and their ratio) come from ``upgrade_to_pbr`` and the
+stage-2 trainer.  Densification (``densify_and_prune``, ``reset_opacity``,
 ``grow_capacity``) is not ported yet.
 """
 
@@ -21,6 +23,8 @@ import torch
 from svgir_tpu_torch.utils.sh import rgb_to_sh
 from svgir_tpu_torch.utils.transforms import (inverse_sigmoid, normal_to_rotation,
                                               normalize, quat_to_rotmat)
+
+VERTEX_NUM = 4  # gaussian_model.py:150
 
 # ---------------------------------------------------------------------------
 # activations (gaussian_model.py:104-125, 270-351)
@@ -46,6 +50,35 @@ def get_geo_normal(params) -> torch.Tensor:
 
 def get_shs(params) -> torch.Tensor:
     return torch.cat([params["shs_dc"], params["shs_rest"]], 1)
+
+
+def get_shading_normal(params) -> torch.Tensor:
+    """[N, 4, 3] per-vertex normals: geo normal + offsets, normalized
+    (gaussian_model.py:287-295).  ``normal`` holds channel-major offsets
+    [cx*4, cy*4, cz*4]."""
+    geo = get_geo_normal(params)[:, None, :]                     # [N, 1, 3]
+    off = params["normal"].reshape(-1, 3, VERTEX_NUM).transpose(1, 2)
+    return normalize(geo + off)
+
+
+def get_base_color(params) -> torch.Tensor:
+    """sigmoid(x)*0.77 + 0.03, channel-major over the 4 vertices
+    (gaussian_model.py:123; the relighting's per-channel rescale is not
+    ported yet)."""
+    return torch.sigmoid(params["base_color"]) * 0.77 + 0.03
+
+
+def get_roughness(params) -> torch.Tensor:
+    return torch.nan_to_num(torch.sigmoid(params["roughness"]) * 0.9 + 0.09,
+                            nan=1e-8)
+
+
+def get_radiances(params) -> torch.Tensor:
+    """Baked radiance, detached, times the trainable ratio
+    (gaussian_model.py:322-324): ``radiances`` trains only through the
+    consistency loss, ``radiance_ratio`` through the rendered PBR loss."""
+    return torch.nan_to_num(
+        params["radiances"].detach() * params["radiance_ratio"], nan=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +153,34 @@ def init_from_points(points, colors, normals=None, *, sh_degree: int = 3,
             "stats": init_stats(cap, device=device)}
 
 
+def pbr_init(cap: int, sh_degree: int = 3,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """Per-vertex PBR parameters of the stage-1 -> stage-2 upgrade
+    (gaussian_model.py:667-684), all zeros; ``upgrade_to_pbr`` replaces
+    ``normal`` by [cap, 12] per-vertex offsets."""
+    k = (sh_degree + 1) ** 2
+    return {
+        "base_color": torch.zeros(cap, 3 * VERTEX_NUM, device=device),
+        "roughness": torch.zeros(cap, VERTEX_NUM, device=device),
+        "incidents_dc": torch.zeros(cap, 1, 3, device=device),
+        "incidents_rest": torch.zeros(cap, k - 1, 3, device=device),
+        "visibility_dc": torch.zeros(cap, 1, 1, device=device),
+        "visibility_rest": torch.zeros(cap, 15, 1, device=device),
+    }
+
+
+def upgrade_to_pbr(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Stage 1 -> stage 2 (create_from_ckpt, from_gs path,
+    gaussian_model.py:667-684): add the per-vertex parameters and replace
+    the [cap, 3] normal by zeroed [cap, 12] per-vertex offsets.  The new
+    tensors go where ``xyz`` lies."""
+    params = dict(state["params"])
+    cap, dev = params["xyz"].shape[0], params["xyz"].device
+    params.update(pbr_init(cap, device=dev))
+    params["normal"] = torch.zeros(cap, 3 * VERTEX_NUM, device=dev)
+    return {**state, "params": params}
+
+
 def init_stats(cap: int, device="cuda") -> Dict[str, torch.Tensor]:
     return {
         "xyz_gradient_accum": torch.zeros(cap, 1, device=device),
@@ -154,7 +215,8 @@ def add_densification_stats(stats, mean2d_grad_ndc, update_filter, weights,
 def params_from_jax(np_params: Mapping[str, Any],
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Parameter dict of the JAX state (values as numpy arrays, e.g. from
-    ``jax.device_get``) -> the same keys as float32 tensors on ``device``."""
+    ``jax.device_get``) -> the same keys as float32 tensors on ``device``.
+    Covers the stage-2 groups too, the 0-d ``radiance_ratio`` included."""
     return {k: torch.as_tensor(np.array(v, np.float32), device=device)
             for k, v in np_params.items()}
 

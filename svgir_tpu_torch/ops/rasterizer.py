@@ -174,9 +174,16 @@ def rasterize(
     slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
     kw = dict(ca=ca, cv=cv, grid_x=grid_x, grid_y=grid_y, tile=tile,
               chunk=cfg.chunk)
+    # on overflow the binner's runs reach past the instance buffer; cut
+    # them at its end so the blend reads no row past M (the dropped
+    # instances are lost for this frame, as the overflow flag reports)
+    m = cfg.max_instances
+    tile_start = torch.clamp(padded.tile_start, max=m)
+    tile_count = torch.minimum(padded.tile_count,
+                               (m - tile_start) // cfg.chunk * cfg.chunk)
     img_p, weights = _BlendGather.apply(
-        slab_ext, padded.gaussian_id, padded.tile_start, padded.tile_count,
-        kw, weights_grad, need_weights)
+        slab_ext, padded.gaussian_id, tile_start, tile_count, kw,
+        weights_grad, need_weights)
     img = img_p[:, :height, :width]
 
     s = 0 if features is None else features.shape[1]

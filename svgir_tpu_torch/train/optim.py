@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from svgir_tpu_torch.config import OptimizationConfig
@@ -20,11 +21,12 @@ BETA1, BETA2, EPS = 0.9, 0.999, 1e-15
 _NAN_FILL = {"scaling": 1e-6, "rotation": 1e-6, "roughness": 1e-6}
 
 
-def group_lrs(opt: OptimizationConfig,
-              spatial_lr_scale: float) -> Dict[str, float]:
-    """Static per-group learning rates of the stage-1 groups (xyz is
-    overridden per step by the schedule)."""
-    return {
+def group_lrs(opt: OptimizationConfig, spatial_lr_scale: float,
+              use_pbr: bool = False) -> Dict[str, float]:
+    """Static per-group learning rates (xyz is overridden per step by the
+    schedule; stage 2 also overrides ``radiances`` per step).  ``use_pbr``
+    adds the stage-2 groups."""
+    lrs = {
         "xyz": opt.position_lr_init * spatial_lr_scale,
         "normal": opt.normal_lr,
         "rotation": opt.rotation_lr,
@@ -33,6 +35,22 @@ def group_lrs(opt: OptimizationConfig,
         "shs_dc": opt.sh_lr,
         "shs_rest": opt.sh_lr / 20.0,
     }
+    if use_pbr:
+        light_rest = opt.light_rest_lr if opt.light_rest_lr >= 0 \
+            else opt.light_lr / 20.0
+        vis_rest = opt.visibility_rest_lr if opt.visibility_rest_lr >= 0 \
+            else opt.visibility_lr / 20.0
+        lrs.update({
+            "base_color": opt.base_color_lr,
+            "roughness": opt.roughness_lr,
+            "incidents_dc": opt.light_lr,
+            "incidents_rest": light_rest,
+            "visibility_dc": opt.visibility_lr,
+            "visibility_rest": vis_rest,
+            "radiances": opt.radiance_lr,
+            "radiance_ratio": opt.radiance_ratio_lr,
+        })
+    return lrs
 
 
 def adam_init(params: Dict[str, torch.Tensor]) -> Dict:
@@ -48,8 +66,11 @@ def adam_step(params: Dict[str, torch.Tensor],
     """One Adam step with NaN scrubbing; returns new dicts (inputs are not
     modified)."""
     step = state["step"] + 1
-    bc1 = 1.0 - BETA1 ** step
-    bc2 = 1.0 - BETA2 ** step
+    # bias corrections in float32, as svgir_tpu forms them (in double they
+    # differ by 6e-6 relative at step 1: float32(0.999) is not 0.999)
+    f32 = np.float32
+    bc1 = float(f32(1.0) - f32(BETA1) ** f32(step))
+    bc2 = float(f32(1.0) - f32(BETA2) ** f32(step))
     new_params, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads.get(k)

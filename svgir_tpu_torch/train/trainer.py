@@ -1,4 +1,4 @@
-"""Stage-1 training: the train step and the step loop.
+"""Training: the stage-1 and stage-2 train steps and step loops.
 
 Mirrors ``svgir_tpu.train.trainer`` (reference ``train.py:28-249``): a
 without-replacement camera schedule, the exponential xyz learning-rate
@@ -6,7 +6,9 @@ schedule, Adam over the parameter groups, densification statistics and the
 binner-overflow growth of ``max_instances``.  Densification, opacity reset,
 checkpointing and staging are not ported yet: ``train_stage1`` raises
 ``NotImplementedError`` at an iteration where a densify or opacity-reset
-cadence would act, instead of skipping it.
+cadence would act, instead of skipping it.  Stage 2 (``train_stage2``)
+takes the radiance bake as an input (``bake_radiance`` is not ported yet)
+and raises for the periodic checkpoint, test and visualization tasks.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 
 from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
 from svgir_tpu_torch.models import gaussians as G
+from svgir_tpu_torch.models import lights as LT
 from svgir_tpu_torch.render.stage1 import render_stage1
+from svgir_tpu_torch.render.svgss import render_svgss
 from svgir_tpu_torch.train import optim
 from svgir_tpu_torch.utils.transforms import get_expon_lr_fn
 
@@ -154,18 +158,170 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
                      "loss": float(tb["loss"]),
                      "n_alive": int(state["alive"].sum()),
                      "elapsed": time.time() - t0}
-            if bool(tb["overflow"]):
-                entry["overflow"] = 1.0
-                print(f"WARNING: instance-buffer overflow at iter {it}: "
-                      "splats were dropped this frame", flush=True)
-                if auto_grow_instances:
-                    raster_cfg = dataclasses.replace(
-                        raster_cfg, max_instances=raster_cfg.max_instances * 2)
-                    print(f"growing max_instances -> "
-                          f"{raster_cfg.max_instances}", flush=True)
-                    step_fn = make(raster_cfg, True)
-                    step_fast = make(raster_cfg, False)
+            if _overflowed(entry, tb, it) and auto_grow_instances:
+                raster_cfg = _grow_instance_cap(raster_cfg)
+                step_fn = make(raster_cfg, True)
+                step_fast = make(raster_cfg, False)
             history.append(entry)
             if callback:
                 callback(entry, state)
     return state, opt_state, history
+
+
+def _overflowed(entry, tb, it) -> bool:
+    """Flag and report a binner overflow (instances were dropped this
+    frame); checked at log cadence only."""
+    if not bool(tb["overflow"]):
+        return False
+    entry["overflow"] = 1.0
+    print(f"WARNING: instance-buffer overflow at iter {it}: splats were "
+          "dropped this frame", flush=True)
+    return True
+
+
+def _grow_instance_cap(raster_cfg: RasterConfig) -> RasterConfig:
+    new = dataclasses.replace(raster_cfg,
+                              max_instances=raster_cfg.max_instances * 2)
+    print(f"growing max_instances -> {new.max_instances}", flush=True)
+    return new
+
+
+def make_svgss_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig,
+                          bg, *, sh_degree: int = 3,
+                          lrs: Optional[Dict[str, float]] = None,
+                          device="cuda"):
+    """Build the stage-2 (render_relight) train step.
+
+    Returns step(state, opt_state, env_state, bake, camera, iteration,
+    xyz_lr, radiance_lr) -> (state, opt_state, env_state, tb_dict).
+
+    One joint step: Adam over the Gaussian groups and, with its own state
+    and ``opt.env_lr``, over the env map.  The radiance group's learning
+    rate is a per-step scalar, so the loop can zero it at the first
+    %1000 iteration (train.py:211-214).
+    """
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
+
+    def step(state, opt_state, env_state, bake, camera, iteration, xyz_lr,
+             radiance_lr):
+        alive = state["alive"]
+        names = list(state["params"])
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state["params"].items()}
+        env = env_state["params"]["env"].detach().requires_grad_(True)
+
+        res = render_svgss(camera, params, bg, bake=bake,
+                           env_params={"env": env}, opt=opt,
+                           iteration=iteration, is_training=True,
+                           alive=alive, sh_degree=sh_degree, cfg=raster_cfg)
+        grads = torch.autograd.grad(
+            res["loss"], [params[k] for k in names] + [env],
+            allow_unused=True)
+        # parameters the loss does not reach get zero gradients, as under
+        # jax.grad, so their Adam moments decay the same way
+        gp = {k: torch.zeros_like(params[k]) if g is None else g
+              for k, g in zip(names, grads[:-1])}
+        genv = torch.zeros_like(env) if grads[-1] is None else grads[-1]
+
+        step_lrs = {**(lrs or {}), "xyz": xyz_lr, "radiances": radiance_lr}
+        new_params, opt_state = optim.adam_step(
+            {k: v.detach() for k, v in params.items()}, gp, opt_state,
+            step_lrs)
+        new_env = LT.direct_light_map_step(
+            {"params": {"env": env.detach()}, "opt": env_state["opt"]},
+            {"env": genv}, opt.env_lr)
+
+        tb = {k: v.detach() for k, v in res["tb_dict"].items()}
+        tb["overflow"] = res["overflow"]
+        return ({"params": new_params, "alive": alive,
+                 "stats": state["stats"]}, opt_state, new_env, tb)
+
+    return step
+
+
+def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
+                 bake: Optional[Dict] = None,
+                 bg=(0.0, 0.0, 0.0), raster_cfg: RasterConfig = RasterConfig(),
+                 spatial_lr_scale: float = 1.0, sh_degree: int = 3,
+                 sample_num: int = 64, env_resolution: int = 16,
+                 first_iter: int = 30_000, iterations: int = 50_000,
+                 seed: int = 0, log_every: int = 50, callback=None,
+                 env_state=None, opt_state=None,
+                 checkpoint_interval: int = 0, test_interval: int = 0,
+                 vis_interval: int = 0, auto_grow_instances: bool = True,
+                 device="cuda"):
+    """Stage-2 loop (train.py with is_pbr=True).  Returns (state,
+    opt_state, env_state, bake, history).
+
+    ``state`` must be PBR-upgraded (``models.gaussians.upgrade_to_pbr``).
+    ``bake`` is required: ``bake_radiance`` is not ported yet, and the
+    periodic checkpoint, test and visualization tasks are not either, so a
+    missing bake or a nonzero interval raises ``NotImplementedError``.
+    ``radiances`` and ``radiance_ratio`` are initialized from the bake when
+    absent; a new env map draws from a generator seeded with ``seed``.
+    """
+    if bake is None:
+        raise NotImplementedError(
+            "train_stage2 needs a radiance bake: bake_radiance is not "
+            "ported to svgir_tpu_torch yet")
+    if checkpoint_interval or test_interval or vis_interval:
+        raise NotImplementedError(
+            "checkpoint, test and visualization intervals are not ported "
+            "to svgir_tpu_torch yet")
+    bake = {k: v for k, v in bake.items() if k != "exhausted_frac"}
+
+    params = dict(state["params"])
+    if "radiances" not in params or params["radiances"].shape[1] != sample_num:
+        params["radiances"] = bake["radiance"].clone()
+        params["radiance_ratio"] = torch.ones((), device=device)
+    state = {**state, "params": params}
+
+    if env_state is None:
+        env_state = LT.direct_light_map_init(
+            env_resolution, opt.light_init,
+            generator=torch.Generator(device=device).manual_seed(seed),
+            device=device)
+
+    lrs = optim.group_lrs(opt, spatial_lr_scale, use_pbr=True)
+    if opt_state is None:
+        opt_state = optim.adam_init(params)
+    step_fn = make_svgss_train_step(opt, raster_cfg, bg, sh_degree=sh_degree,
+                                    lrs=lrs, device=device)
+    xyz_sched = get_expon_lr_fn(
+        lr_init=opt.position_lr_init * spatial_lr_scale,
+        lr_final=opt.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt.position_lr_delay_mult,
+        max_steps=opt.position_lr_max_steps)
+    cams = [dataclasses.replace(c, uid=0, image_name="") for c in cameras]
+
+    radiance_lr = opt.radiance_lr
+    # resuming past the first %1000 boundary keeps it zeroed
+    if first_iter >= 1000 and (first_iter // 1000) * 1000 > 30_000:
+        radiance_lr = 0.0
+    history = []
+    t0 = time.time()
+    for it in range(first_iter + 1, iterations + 1):
+        cam = camera_for_iter(cams, it, seed)
+        xyz_lr = float(xyz_sched(it))
+        state, opt_state, env_state, tb = step_fn(
+            state, opt_state, env_state, bake, cam, float(it - first_iter),
+            xyz_lr, radiance_lr)
+        # train.py:211-214: zero the radiance lr at the first %1000
+        # boundary
+        if it % 1000 == 0:
+            radiance_lr = 0.0
+
+        if it % log_every == 0 or it == iterations:
+            entry = {"iter": it, "psnr": float(tb["psnr"]),
+                     "psnr_pbr": float(tb["psnr_pbr"]),
+                     "loss": float(tb["loss"]),
+                     "elapsed": time.time() - t0}
+            if _overflowed(entry, tb, it) and auto_grow_instances:
+                raster_cfg = _grow_instance_cap(raster_cfg)
+                step_fn = make_svgss_train_step(
+                    opt, raster_cfg, bg, sh_degree=sh_degree, lrs=lrs,
+                    device=device)
+            history.append(entry)
+            if callback:
+                callback(entry, state, env_state)
+    return state, opt_state, env_state, bake, history

@@ -1,5 +1,6 @@
 """Camera matrices (host numpy, math convention: column vectors,
-``P @ W2C @ [p;1]``), as in ``svgir_tpu.utils.graphics``.
+``P @ W2C @ [p;1]``), hemisphere sampling and the sRGB transforms, as in
+``svgir_tpu.utils.graphics``.
 
 Reference: ``utils/graphics_utils.py``.
 """
@@ -7,8 +8,13 @@ Reference: ``utils/graphics_utils.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
+import torch
+
+from svgir_tpu_torch.utils.sh import rotation_between_z
+from svgir_tpu_torch.utils.transforms import normalize
 
 
 def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -57,3 +63,45 @@ def projection_matrix_center_shift(znear: float, zfar: float, cx: float,
 
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
+
+
+def fibonacci_sphere_sampling(normals: torch.Tensor, sample_num: int,
+                              azimuth: Optional[torch.Tensor] = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hemisphere fibonacci-spiral sampling around unit ``normals`` [N, 3]
+    (graphics_utils.py:9-37): z clamped to >= sin(10 deg), area weight
+    2*pi.  ``azimuth`` [N, 1], uniform in [0, 1), rotates each point's
+    spiral by ``2*pi*azimuth`` (the training-time random offset; the
+    caller draws it).  Returns incident_dirs [N, S, 3], areas [N, S, 1]."""
+    dev = normals.device
+    delta = math.pi * (3.0 - math.sqrt(5.0))
+    idx = torch.arange(sample_num, dtype=torch.float32, device=dev)[None]
+    z = torch.clamp(1 - 2 * idx / (2 * sample_num - 1),
+                    min=math.sin(10 / 180 * math.pi))
+    rad = torch.sqrt(1 - z ** 2)
+    theta = delta * idx
+    if azimuth is not None:
+        theta = azimuth * 2 * math.pi + theta                   # [N, S]
+    y = torch.cos(theta) * rad
+    x = torch.sin(theta) * rad
+    z_samples = torch.stack(torch.broadcast_tensors(x, y, z), dim=-2)
+    dirs = rotation_between_z(normals) @ z_samples              # [N, 3, S]
+    dirs = normalize(dirs, dim=-2).transpose(-1, -2)            # [N, S, 3]
+    areas = torch.full(dirs.shape[:-1] + (1,), 2 * math.pi, device=dev)
+    return dirs, areas
+
+
+def rgb_to_srgb(img: torch.Tensor, clip: bool = True) -> torch.Tensor:
+    """Linear -> sRGB (graphics_utils.py:198-215), any channel layout."""
+    out = torch.where(
+        img > 0.0031308,
+        torch.pow(torch.clamp(img, min=0.0031308), 1.0 / 2.4) * 1.055 - 0.055,
+        12.92 * img)
+    return torch.clamp(out, 0.0, 1.0) if clip else out
+
+
+def srgb_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """sRGB -> linear (graphics_utils.py:218-231)."""
+    return torch.where(
+        img <= 0.04045, img / 12.92,
+        torch.pow((torch.clamp(img, min=0.04045) + 0.055) / 1.055, 2.4))

@@ -1,9 +1,10 @@
-"""Image losses: L1, SSIM, PSNR, cosine, mask entropy and the first-order
-edge-aware smoothness.
+"""Image losses: L1, MSE, SSIM (single and paired), PSNR, cosine, mask
+entropy, TV and the first- and second-order edge-aware smoothness.
 
 Reference: ``utils/loss_utils.py`` and ``svgir_tpu.utils.losses``.  SSIM
 runs in float32 (cuDNN's TF32 is switched off at package import); the
-edge-aware loss uses kornia's normalized 3x3 Sobel with replicate padding.
+edge-aware losses use kornia's normalized Sobel kernels (3x3 / 8 for order
+1; 5x5 / 64 and / 36 for order 2) with replicate padding.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ import torch.nn.functional as F
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a - b).abs().mean()
+
+
+def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a - b) ** 2).mean()
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
@@ -64,19 +69,56 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     return ssim_map.mean()
 
 
+def ssim_pair(img1: torch.Tensor, img2: torch.Tensor, ref: torch.Tensor,
+              window_size: int = 11):
+    """(ssim(img1, ref), ssim(img2, ref)) from one stacked blur of eight
+    quantities, sharing the reference image's window statistics."""
+    c = img1.shape[0]
+    stacked = torch.cat([img1, img2, ref, img1 * img1, img2 * img2,
+                         ref * ref, img1 * ref, img2 * ref])
+    b = _separable_blur(stacked, _gaussian_1d(window_size))
+    mu1, mu2, mur = b[0:c], b[c:2 * c], b[2 * c:3 * c]
+    e1, e2, er = b[3 * c:4 * c], b[4 * c:5 * c], b[5 * c:6 * c]
+    e1r, e2r = b[6 * c:7 * c], b[7 * c:8 * c]
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+
+    def one(mu_a, e_a, e_ar):
+        mu_ar = mu_a * mur
+        sig_a = e_a - mu_a * mu_a
+        sig_r = er - mur * mur
+        sig_ar = e_ar - mu_ar
+        return (((2 * mu_ar + c1) * (2 * sig_ar + c2)) /
+                ((mu_a * mu_a + mur * mur + c1)
+                 * (sig_a + sig_r + c2))).mean()
+
+    return one(mu1, e1, e1r), one(mu2, e2, e2r)
+
+
 _SOBEL_X = np.array([[-1., 0., 1.], [-2., 0., 2.], [-1., 0., 1.]],
                     np.float32) / 8.0
+_SOBEL_XX = np.array([[-1., 0., 2., 0., -1.],
+                      [-4., 0., 8., 0., -4.],
+                      [-6., 0., 12., 0., -6.],
+                      [-4., 0., 8., 0., -4.],
+                      [-1., 0., 2., 0., -1.]], np.float32) / 64.0
+_SOBEL_XY = np.array([[-1., -2., 0., 2., 1.],
+                      [-2., -4., 0., 4., 2.],
+                      [0., 0., 0., 0., 0.],
+                      [2., 4., 0., -4., -2.],
+                      [1., 2., 0., -2., -1.]], np.float32) / 36.0
 
 
-def spatial_gradient(img: torch.Tensor) -> torch.Tensor:
-    """First-order normalized Sobel gradients, replicate padding:
-    [C, H, W] -> [C, 2, H, W] (dx, dy)."""
-    c = img.shape[0]
-    k = torch.as_tensor(np.stack([_SOBEL_X, _SOBEL_X.T]), device=img.device,
-                        dtype=img.dtype)
-    padded = F.pad(img[None], (1, 1, 1, 1), mode="replicate")
-    out = F.conv2d(padded.transpose(0, 1), k[:, None])     # [C, 2, H, W]
-    return out
+def spatial_gradient(img: torch.Tensor, order: int = 1) -> torch.Tensor:
+    """Normalized Sobel gradients with replicate padding: [C, H, W] ->
+    [C, 2, H, W] (dx, dy) for order 1, [C, 3, H, W] (dxx, dxy, dyy) for
+    order 2."""
+    if order == 1:
+        kerns, pad = [_SOBEL_X, _SOBEL_X.T], 1
+    else:
+        kerns, pad = [_SOBEL_XX, _SOBEL_XY, _SOBEL_XX.T], 2
+    k = torch.as_tensor(np.stack(kerns), device=img.device, dtype=img.dtype)
+    padded = F.pad(img[None], (pad,) * 4, mode="replicate")
+    return F.conv2d(padded.transpose(0, 1), k[:, None])     # [C, G, H, W]
 
 
 def first_order_edge_aware_loss(data: torch.Tensor,
@@ -85,6 +127,22 @@ def first_order_edge_aware_loss(data: torch.Tensor,
     g_data = spatial_gradient(data).abs()
     g_img = spatial_gradient(img).abs()
     return (g_data * torch.exp(-g_img)).sum(1).mean()
+
+
+def second_order_edge_aware_loss(data: torch.Tensor,
+                                 img: torch.Tensor) -> torch.Tensor:
+    """loss_utils.py:101-102: |dxx|, |dyy| of ``data`` weighted by
+    exp(-10 |d img|)."""
+    g2 = spatial_gradient(data, 2).abs()[:, [0, 2]]
+    g1 = spatial_gradient(img, 1).abs()
+    return (g2 * torch.exp(-10 * g1)).sum(1).mean()
+
+
+def tv_loss(x: torch.Tensor) -> torch.Tensor:
+    """loss_utils.py:113-117 (mean squared neighbour difference)."""
+    h_tv = ((x[..., 1:, :] - x[..., :-1, :]) ** 2).mean()
+    w_tv = ((x[..., :, 1:] - x[..., :, :-1]) ** 2).mean()
+    return h_tv + w_tv
 
 
 def cos_loss(output: torch.Tensor, gt: torch.Tensor, thrsh: float = 0.0,

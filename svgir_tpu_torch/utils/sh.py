@@ -76,3 +76,21 @@ def sh_to_rgb_clamped(deg: int, sh: torch.Tensor, dirs: torch.Tensor,
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
+
+
+def rotation_between_z(vec: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix aligning +z to ``vec`` [..., 3] -> [..., 3, 3]
+    (``rotation_between_z``, utils/sh_utils.py:36-68), including the
+    -identity fallback when vec_z == -1."""
+    v1 = -vec[..., 1]
+    v2 = vec[..., 0]
+    v11, v22, v12 = v1 * v1, v2 * v2, v1 * v2
+    cos_p_1 = torch.clamp(vec[..., 2] + 1, min=1e-7)
+    R = torch.stack([
+        torch.stack([1 + (-v22) / cos_p_1, v12 / cos_p_1, v2], -1),
+        torch.stack([v12 / cos_p_1, 1 + (-v11) / cos_p_1, -v1], -1),
+        torch.stack([-v2, v1, 1 + (-v22 - v11) / cos_p_1], -1),
+    ], dim=-2)
+    flip = (vec[..., 2] + 1 > 0)[..., None, None]
+    return torch.where(flip, R, -torch.eye(3, dtype=vec.dtype,
+                                           device=vec.device))

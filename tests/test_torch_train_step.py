@@ -228,6 +228,11 @@ def test_port_imports_neither_jax_nor_svgir_tpu():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'svgir_tpu' or m.startswith('svgir_tpu.')]\n"
         "assert not bad, bad\n"
+        "stage2 = ['render.svgss', 'models.lights', 'models.radiance',"
+        " 'ops.shading', 'ops.env_lookup_pallas', 'kernels.env_lookup']\n"
+        "missing = [m for m in stage2 if 'svgir_tpu_torch.' + m"
+        " not in sys.modules]\n"
+        "assert not missing, missing\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
