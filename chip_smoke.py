@@ -2,8 +2,9 @@
 """Smoke run of svgir_tpu_torch on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py            # all phases, from the repository root
-    python3 chip_smoke.py --profile DIR   # also write a torch.profiler
-                                          # table of one train step to DIR
+    python3 chip_smoke.py --profile DIR   # also write torch.profiler
+                                          # tables of a stage-1, a stage-2
+                                          # and an S = 64 step to DIR
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build    compile csrc/*.cu with nvcc (in parallel) and load them;
@@ -47,6 +48,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   11. s2 timing  stage-2 train step and eval render medians; B7 with its
                  plain version, bound and grid_sample yardstick; B3/B4 at
                  stage-2 width.
+  The radiance bake that starts stage 2 (the bench scene upgraded to PBR,
+  S = 64 samples per surfel as the recipe's --sample_num 64, k_hits 16, a
+  16x32 env: train_stage2's defaults):
+  12. bake+train train_stage2(bake=None) for three steps: the bake over
+                 the 50k surfels (grid march on B8), then the steps; launch
+                 counts reset just before and read just after; B8 and the
+                 step's kernels launched; exhausted share, bake seconds,
+                 finite loss, moments and parameters; one S = 64 step's
+                 time and peak memory.  The bench surfels face outward, so
+                 no ray of this bake hits a front face: the same surfels
+                 turned inward are baked too (bake_radiance, S = 64, k 16;
+                 most rays hit and lists fill), with one S = 64 step on
+                 that bake.
+  13. march      B8 against its plain version (march_plain) on the first
+                 ray chunk (65,536 rays) of each of those bakes and on a
+                 small bake's rays (3,000 surfels facing inward), also at
+                 k 8, 32, 64 and 128 on 8,192 of them: idx equal and t
+                 equal on every slot, or within the stated count.
+  14. oracle     the grid march through B8 (nearest_hits_grid) against the
+                 brute tracer (nearest_hits) on the 4,096 rays with the
+                 most hits of each of those ray sets.
+  15. bake parity a small bake on the card (B8) against the CPU's plain
+                 path.
+  16. bake timing a second, warm bake (seconds, launches per bake) and a
+                 warm inward bake; B8's ms per launch on both first chunks
+                 with its plain version and its bound, counted from the
+                 visits each chunk's data needs; the brute and the grid
+                 bake at 3,000 and 6,000 surfels (either side of the
+                 switch at 4,096).
 
 The second-to-last line of output is the kernels JSON; before it the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -84,6 +114,17 @@ TOL_S2_GRAD = 2.5e-3    # of each gradient's largest magnitude
 
 STAGE1_KERNELS = ("binning_counts", "binning_instances", "blend_forward",
                   "blend_backward")
+STAGE2_KERNELS = STAGE1_KERNELS + ("env_lookup_forward",
+                                   "env_lookup_backward")
+
+# B8 against its plain version: both round every operation of the surfel
+# test in the same order, so they should agree hit for hit; a slot may
+# differ only where expf and torch's exp part at an alpha threshold.
+MARCH_SLOT_TOL = 1e-4   # share of a chunk's finite slots that may differ
+# The small bake, card against CPU: the geometry (quaternion rotations,
+# incident directions) differs by float32 rounding between the devices.
+BAKE_HIT_TOL = 1e-3     # share of rays that may differ
+BAKE_VAL_TOL = 1e-4     # absolute, radiance / visibility / uv
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_S = 67e12      # H100 SXM float32 (and integer ALU) rate, non-tensor
@@ -134,8 +175,10 @@ def host_ms(fn, reps=10, warmup=2) -> float:
     return statistics.median(times)
 
 
-def bench_scene(device, n=50_000, res=800, seed=0):
-    """The scene of bench.py, with its random draws from torch."""
+def bench_scene(device, n=50_000, res=800, seed=0, inward=False):
+    """The scene of bench.py, with its random draws from torch; with
+    ``inward`` the same surfels face the ball's centre (bake rays then
+    meet front faces across the shell)."""
     import torch
 
     from svgir_tpu_torch.cameras import look_at_camera
@@ -147,7 +190,8 @@ def bench_scene(device, n=50_000, res=800, seed=0):
     r = 0.7 + 0.3 * torch.rand(n, 1, generator=g, device=device)
     cols = torch.rand(n, 3, generator=g, device=device)
     gt = torch.rand(3, res, res, generator=g, device=device)
-    state = G.init_from_points(dirs * r, cols, normals=dirs, capacity=n,
+    state = G.init_from_points(dirs * r, cols,
+                               normals=-dirs if inward else dirs, capacity=n,
                                rotation_init="normal", device=device)
     cam = look_at_camera(eye=[0.5, 0.4, -2.6], target=[0, 0, 0],
                          up=[0, -1, 0], fovx=math.pi / 3, fovy=math.pi / 3,
@@ -654,6 +698,429 @@ def run_small_stage2(device):
     return ev, r, out
 
 
+# ---------------------------------------------------------------------------
+# the radiance bake
+# ---------------------------------------------------------------------------
+
+BAKE_SAMPLES = 64       # train_stage2's sample_num (--sample_num 64)
+BAKE_ENV_H = 16         # train_stage2's env_resolution
+# Float operations of B8 (csrc/march.cu), an exp or division counting one:
+# a candidate test (the plane hit, its local uv and ellipse metric, the
+# power's six products and sums, alpha and the eight acceptance tests with
+# their conjunction) and a step of the cell walk (the midpoint and the
+# three clamped cell coordinates).  The merge's inserts are not counted.
+MARCH_TEST_OPS = 84
+MARCH_STEP_OPS = 33
+
+
+class Recorder:
+    """Wraps ``mod.name`` while open: records each call's arguments,
+    result and wall seconds (synchronized on both sides)."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.calls = mod, name, []
+
+    def __enter__(self):
+        import torch
+        self.fn = getattr(self.mod, self.name)
+
+        def rec(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((a, kw, out, time.perf_counter() - t0))
+            return out
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+
+def march_work(grid, o, d, t, *, n_steps, kmax, k):
+    """The work B8's function needs on rays (o, d) whose result is t
+    [R, k]: the visits before the walk may stop (a full list whose k-th t
+    lies at or before the visit's start: nothing later can enter), the
+    steps walked to there, and the distinct blocks and cells those visits
+    read."""
+    import torch
+
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    nb, _, cells = GT._run_scan(grid, o, d, n_steps=n_steps, kmax=kmax)
+    j = torch.arange(n_steps, device=o.device)
+    t_lo = j.to(torch.float32) * GT.grid_dt(grid)
+    kth = torch.where(torch.isfinite(t[:, k - 1]), t[:, k - 1],
+                      torch.full_like(t[:, 0], float("inf")))
+    late = (nb > 0) & ~(t_lo[None] < kth[:, None])
+    stop = torch.where(late.any(1), late.to(torch.int32).argmax(1),
+                       torch.full_like(j[:1], n_steps).expand(len(o)))
+    needed = (nb > 0) & (j[None] < stop[:, None])
+    cells_u = torch.unique(cells[needed])
+    cnt = torch.clamp(grid.cell_count[cells_u.long()], max=grid.cell_cap)
+    return {"blocks": int((nb * needed).sum()), "all_blocks": int(nb.sum()),
+            "steps": int(stop.sum()), "cells": int(cells_u.numel()),
+            "distinct_blocks": int(((cnt + 63) // 64).sum())}
+
+
+def march_bound(work, r, k):
+    """Least time (ms) of B8 on ``work``: the 24 fields the test reads of
+    each distinct block (6 KB) and its cell's two entries read once, each
+    ray's 24 bytes read and its k hits (8 bytes each) written once; the
+    needed candidate tests and walk steps at the float32 rate."""
+    nbytes = work["distinct_blocks"] * 24 * 64 * 4 + work["cells"] * 8 \
+        + r * (24 + 8 * k)
+    ops = work["blocks"] * 64 * MARCH_TEST_OPS + work["steps"] * MARCH_STEP_OPS
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def small_bake_inputs(n=3000, seed=5):
+    """bake_radiance inputs of a small scene made on the CPU from a seeded
+    generator: surfels on a thin ball shell facing its centre (normals
+    more than 60 degrees from -z, where rotation_between_z divides by
+    1 + n_z), SH colours, and the spirals' azimuth draws."""
+    import torch
+
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.utils.transforms import normalize
+
+    g = torch.Generator().manual_seed(seed)
+    d = normalize(torch.randn(2 * n, 3, generator=g))
+    d = d[d[:, 2] < 0.5][:n]
+    pts = d * (0.3 + 0.05 * torch.rand(len(d), 1, generator=g))
+    st = G.init_from_points(pts, torch.rand(len(d), 3, generator=g),
+                            normals=-d, capacity=len(d),
+                            rotation_init="normal", device="cpu")
+    p = st["params"]
+    shs = 0.3 * torch.randn(len(d), 16, 3, generator=g)
+    az = torch.rand(len(d), 1, generator=g)
+    return (p["xyz"], G.get_scaling(p), G.get_rotation(p),
+            G.get_opacity(p)[:, 0], shs), az
+
+
+def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
+    """Phases 12-16; returns B8's entries of the kernels JSON (the main
+    path's first chunk, and the inward bench bake's).  With
+    ``profile_dir``, also writes the profile of one S = 64 step there."""
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.models import radiance as RAD
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    from svgir_tpu_torch.ops import march_pallas as MP
+    from svgir_tpu_torch.ops import tracing as TR
+    from svgir_tpu_torch.render.stage1 import render_view_stage1
+    from svgir_tpu_torch.train import optim, trainer
+
+    # ---- 12. bake + train: train_stage2(bake=None) (main path) ----------
+    pbr = G.upgrade_to_pbr(state)
+    steps = 3
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Recorder(trainer, "bake_radiance_compact") as rc, \
+            Recorder(GT, "nearest_hits_grid") as rg:
+        st3, _, env3, bake3, hist3 = trainer.train_stage2(
+            pbr, [cam], opt, raster_cfg=cfg, sample_num=BAKE_SAMPLES,
+            env_resolution=BAKE_ENV_H, first_iter=30_000,
+            iterations=30_000 + steps, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    peak_all = torch.cuda.max_memory_allocated()
+    (_, bkw, bake_out, bake_s), = rc.calls
+    exhausted = float(bake_out["exhausted_frac"])
+    hits = bake3["hit_idx"]
+    log(f"[bake+train] train_stage2(bake=None), {int(state['alive'].sum())} "
+        f"surfels x S={BAKE_SAMPLES}: bake {bake_s:.3f} s (cold: kernel load, grid "
+        f"build, {len(rg.calls)} ray chunks whose grid tracing took "
+        f"{sum(c[3] for c in rg.calls):.3f} s), exhausted_frac {exhausted:.6f},"
+        f" rays with a first hit {float((hits >= 0).float().mean()):.4f}, "
+        f"mean visibility {float(bake3['visibility'].mean()):.4f}; "
+        f"{steps} steps: " + ", ".join(
+            f"loss {h['loss']:.6f} psnr_pbr {h['psnr_pbr']:.4f}"
+            for h in hist3) + f"; wall {wall:.3f} s, peak memory "
+        f"{peak_all / 2**30:.3f} GiB; card: {card}")
+    log(f"[bake+train] launches {launches}")
+    if launches["march"] < 1:
+        raise AssertionError("the bake did not launch the march kernel")
+    for k in STAGE2_KERNELS:
+        if launches[k] < steps:
+            raise AssertionError(f"bake+train launched {k} {launches[k]} "
+                                 f"times in {steps} steps")
+    if tuple(hits.shape) != (state["alive"].shape[0], BAKE_SAMPLES):
+        raise AssertionError(f"bake: hit_idx of shape {tuple(hits.shape)}")
+    for k in ("radiance", "visibility", "uv", "incident_qxy"):
+        if not bool(torch.isfinite(bake3[k]).all()):
+            raise AssertionError(f"bake: non-finite {k}")
+    if any(not math.isfinite(h["loss"]) or h.get("overflow")
+           for h in hist3):
+        raise AssertionError(f"bake+train: bad step {hist3}")
+    for k, v in list(st3["params"].items()) + \
+            [("env", env3["params"]["env"]),
+             ("env m", env3["opt"]["m"]["env"]),
+             ("env v", env3["opt"]["v"]["env"])]:
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"bake+train: non-finite values in {k}")
+
+    step3 = trainer.make_svgss_train_step(
+        opt, cfg, bg, lrs=optim.group_lrs(opt, 1.0, use_pbr=True),
+        device=dev)
+    s3_args = (st3, optim.adam_init(st3["params"]), env3, bake3, cam, 1.0,
+               1e-5, opt.radiance_lr)
+    step3(*s3_args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step3(*s3_args)
+    torch.cuda.synchronize()
+    peak_step = torch.cuda.max_memory_allocated()
+    step_ms = host_ms(lambda: step3(*s3_args), reps=5, warmup=1)
+    log(f"[bake+train] S={BAKE_SAMPLES} stage-2 train step {step_ms:.3f} ms"
+        f" (median of 5), peak memory {peak_step / 2**30:.3f} GiB "
+        f"(max_memory_allocated); card: {card}")
+    if profile_dir:
+        profile_step(lambda: step3(*s3_args), profile_dir,
+                     "chip_smoke_profile_stage2_s64.txt")
+
+    # ---- the bench scene turned inward: a full-size bake whose rays hit --
+    # The main path's surfels face outward, so none of its rays meets a
+    # front face.  The same 50,000 surfels facing the centre, baked at
+    # S = 64 and k 16, give B8 (13), the oracle (14) and the timings (16)
+    # chunks of the main path's size and grid size in which lists fill.
+    in_state, _ = bench_scene(dev, inward=True)
+    p_in = in_state["params"]
+    in_inputs = (p_in["xyz"], G.get_scaling(p_in), G.get_rotation(p_in),
+                 G.get_opacity(p_in)[:, 0], G.get_shs(p_in))
+    in_kw = dict(sample_num=BAKE_SAMPLES, k_hits=16, azimuth=torch.rand(
+        p_in["xyz"].shape[0], 1, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(7)))
+    with Recorder(GT, "nearest_hits_grid") as ri:
+        b_in = RAD.bake_radiance(*in_inputs, **in_kw)
+    in_hit = float((b_in["hit_idx"] >= 0).float().mean())
+    log(f"[inward] the bench surfels facing inward, bake_radiance at S="
+        f"{BAKE_SAMPLES}, k 16: {len(ri.calls)} ray chunks, rays with a "
+        f"first hit {in_hit:.4f}, exhausted_frac "
+        f"{float(b_in['exhausted_frac']):.6f}, mean visibility "
+        f"{float(b_in['visibility'].mean()):.4f}")
+    if in_hit == 0.0:
+        raise AssertionError("inward bake: no ray has a first hit")
+    for key in ("radiance", "visibility", "uv"):
+        if not bool(torch.isfinite(b_in[key]).all()):
+            raise AssertionError(f"inward bake: non-finite {key}")
+    # one S = 64 step on this bake (hit rows spread over the surfels)
+    bake_in = {x: v for x, v in b_in.items() if x != "exhausted_frac"}
+    st_in = G.upgrade_to_pbr(in_state)
+    prm = dict(st_in["params"])
+    prm["radiances"] = bake_in["radiance"].clone()
+    prm["radiance_ratio"] = torch.ones((), device=dev)
+    st_in = {**st_in, "params": prm, "stats": in_state["stats"]}
+    in_args = (st_in, optim.adam_init(prm), env3, bake_in, cam, 1.0, 1e-5,
+               opt.radiance_lr)
+    # the inward surfels cover more tiles: the cap is sized from their own
+    # forward render as phase 2 sizes the main path's
+    with torch.no_grad(), Capture() as cap_in:
+        render_view_stage1(cam, p_in, bg, alive=in_state["alive"],
+                           cfg=RasterConfig())
+    padded_in = int(cap_in.calls["blend_forward"][0][2].sum())
+    cfg_in = RasterConfig(max_instances=-(-padded_in * 21 // (20 * 2048))
+                          * 2048)
+    step_in = trainer.make_svgss_train_step(
+        opt, cfg_in, bg, lrs=optim.group_lrs(opt, 1.0, use_pbr=True),
+        device=dev)
+    tb_in = step_in(*in_args)[3]
+    if not math.isfinite(float(tb_in["loss"])) or bool(tb_in["overflow"]):
+        raise AssertionError(f"inward S={BAKE_SAMPLES} step: loss "
+                             f"{float(tb_in['loss'])}, overflow "
+                             f"{bool(tb_in['overflow'])}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_in(*in_args)
+    torch.cuda.synchronize()
+    peak_in = torch.cuda.max_memory_allocated()
+    step_in_ms = host_ms(lambda: step_in(*in_args), reps=5, warmup=1)
+    log(f"[inward] S={BAKE_SAMPLES} stage-2 train step on the inward bake "
+        f"{step_in_ms:.3f} ms at cap {cfg_in.max_instances} ({padded_in} "
+        f"padded instances; median of 5; the main path's bake: "
+        f"{step_ms:.3f} ms at cap {cfg.max_instances}), peak memory "
+        f"{peak_in / 2**30:.3f} GiB; card: {card}")
+    if profile_dir:
+        profile_step(lambda: step_in(*in_args), profile_dir,
+                     "chip_smoke_profile_stage2_s64_inward.txt")
+
+    # ---- 13. B8 against its plain version ---------------------------------
+    # on the first ray chunk of the main path's bake (no hits), of the
+    # inward bake (lists fill and merge at full size), and on a small
+    # bake's rays (surfels facing inward) at every k the kernel takes
+    (geo, grid, o, d), hkw, _, _ = rg.calls[0]
+    k = hkw["k"]
+    mkw = dict(t_max=hkw["t_max"], k=k, n_steps=hkw["n_steps"],
+               kmax=GT._run_kmax(grid))
+    (geo_i, grid_i, o_i, d_i), ikw, _, _ = ri.calls[0]
+    imkw = dict(t_max=ikw["t_max"], k=ikw["k"], n_steps=ikw["n_steps"],
+                kmax=GT._run_kmax(grid_i))
+    inputs, az = small_bake_inputs()
+    kw = dict(sample_num=16, use_grid=True)
+    with Recorder(GT, "nearest_hits_grid") as rs:
+        b_dev = RAD.bake_radiance(*[x.to(dev) for x in inputs],
+                                  azimuth=az.to(dev), **kw)
+    (_, grid_s, o_s, d_s), skw, _, _ = rs.calls[0]
+    smkw = dict(t_max=skw["t_max"], k=skw["k"], n_steps=skw["n_steps"],
+                kmax=GT._run_kmax(grid_s))
+    cases = {"bench chunk": (grid, o, d, mkw),
+             "inward bench chunk": (grid_i, o_i, d_i, imkw),
+             "small bake": (grid_s, o_s, d_s, smkw)}
+    # the kernel's other register layouts and the re-bake's doubled k
+    for kk in (8, 32, 64, 128):
+        cases[f"small bake, k {kk}"] = (grid_s, o_s[:8192], d_s[:8192],
+                                        {**smkw, "k": kk})
+    err, err_i = 0.0, 0.0
+    for label, (g_, o_, d_, kw_) in cases.items():
+        with torch.no_grad():
+            kt, ki = MP.march(g_, o_, d_, **kw_)
+            pt, pi = MP.march_plain(g_, o_, d_, **kw_)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(pt)
+        bad = int(((ki != pi) | (torch.isfinite(kt) != fin)
+                   | (fin & (kt != pt))).sum())
+        n_fin = int(fin.sum())
+        both = fin & torch.isfinite(kt)
+        e = float((kt - pt)[both].abs().max()) if bool(both.any()) else 0.0
+        err = max(err, e)
+        log(f"[march] B8 vs plain, {label}: {len(o_)} rays (grid res "
+            f"{g_.res}, cap {g_.cell_cap}, {g_.block_geo.shape[0] - 1} "
+            f"blocks, {g_.big_ids.shape[0]} big surfels, n_steps "
+            f"{kw_['n_steps']}, kmax {kw_['kmax']}, k {kw_['k']}): {n_fin} "
+            f"finite slots, {int(fin[:, -1].sum())} full lists, {bad} slots"
+            f" differ, max|t err| {e:.3g}")
+        if bad > MARCH_SLOT_TOL * max(n_fin, 1):
+            raise AssertionError(f"B8 differs from its plain version at "
+                                 f"{bad} of {n_fin} finite slots")
+        if label == "bench chunk":
+            bench_t = pt
+        elif label == "inward bench chunk":
+            in_t, err_i = pt, e
+            if n_fin < 0.25 * pt.numel():
+                raise AssertionError(f"the inward chunk has only {n_fin} "
+                                     "finite slots")
+        elif label == "small bake":
+            small_t = pt
+
+    # ---- 14. the grid march (B8) against the brute oracle ---------------
+    # on the 4,096 rays with the most hits of the bench chunk, the inward
+    # bench chunk and the small bake (the main path's bench surfels face
+    # outward: their rays meet only back faces, which the hit test rejects)
+    geo_s = TR.build_surfel_geometry(*[x.to(dev) for x in inputs[:4]])
+    for label, (geo_, g_, o_, d_, kw_, t_) in {
+            "bench chunk": (geo, grid, o, d, hkw, bench_t),
+            "inward bench chunk": (geo_i, grid_i, o_i, d_i, ikw, in_t),
+            "small bake": (geo_s, grid_s, o_s, d_s, skw, small_t)}.items():
+        sel = torch.argsort(torch.isfinite(t_).sum(1), descending=True,
+                            stable=True)[:4096]
+        with torch.no_grad():
+            hg = GT.nearest_hits_grid(geo_, g_, o_[sel], d_[sel],
+                                      t_max=kw_["t_max"], k=kw_["k"],
+                                      n_steps=kw_["n_steps"])
+            hb = TR.nearest_hits(geo_, o_[sel], d_[sel], k=kw_["k"])
+        torch.cuda.synchronize()
+        fb = torch.isfinite(hb["t"])
+        bad_o = int(((fb != torch.isfinite(hg["t"]))
+                     | (fb & ((hg["idx"] != hb["idx"])
+                              | (hg["t"] != hb["t"])))).sum())
+        log(f"[oracle] grid march (B8) vs brute, {label}, 4096 rays: "
+            f"{int(fb.sum())} finite slots, {bad_o} differ")
+        if label != "bench chunk" and not bool(fb.any()):
+            raise AssertionError(f"oracle: no hits on the {label}")
+        if bad_o > MARCH_SLOT_TOL * max(int(fb.sum()), 1):
+            raise AssertionError(f"grid march differs from brute at {bad_o}"
+                                 f" slots ({label})")
+
+    # ---- 15. the small bake on the card against the CPU's plain path ----
+    # a ray differs when its first hit does or its radiance, visibility or
+    # uv is off by more than BAKE_VAL_TOL (a later hit can flip at an
+    # acceptance boundary between the devices' roundings)
+    b_cpu = RAD.bake_radiance(*inputs, azimuth=az, **kw)
+    off = b_dev["hit_idx"].cpu() != b_cpu["hit_idx"]
+    for key in ("radiance", "visibility", "uv"):
+        off |= ((b_dev[key].cpu() - b_cpu[key]).abs()
+                > BAKE_VAL_TOL).any(-1)
+    n_rays = off.numel()
+    worst = max(float((b_dev[key].cpu() - b_cpu[key]).abs()[~off].max())
+                for key in ("radiance", "visibility", "uv"))
+    log(f"[bake parity] {inputs[0].shape[0]} surfels x 16: card vs CPU "
+        f"differ on {int(off.sum())} of {n_rays} rays "
+        f"({int((b_cpu['hit_idx'] >= 0).sum())} with a first hit); the "
+        f"others within {worst:.3g}")
+    if int(off.sum()) > BAKE_HIT_TOL * n_rays:
+        raise AssertionError("bake parity: card and CPU bakes differ")
+
+    # ---- 16. timing ------------------------------------------------------
+    params, alive = rc.calls[0][0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.bake_radiance_compact(params, alive, **bkw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    per_bake = kernels.launches()["march"]
+    if profile_dir:
+        profile_step(lambda: trainer.bake_radiance_compact(params, alive,
+                                                           **bkw),
+                     profile_dir, "chip_smoke_profile_bake.txt")
+    ms = cuda_ms(lambda: MP.march(grid, o, d, **mkw), reps=10)
+    pms = cuda_ms(lambda: MP.march_plain(grid, o, d, **mkw), reps=2,
+                  warmup=1)
+    work = march_work(grid, o, d, bench_t, **{x: mkw[x] for x in
+                                              ("n_steps", "kmax", "k")})
+    bms, by = march_bound(work, len(o), k)
+    log(f"[bake timing] warm bake {warm_s:.3f} s ({per_bake} B8 launches, "
+        f"{len(o)} rays each but the last); B8 {ms:.4f} ms per launch "
+        f"(plain {pms:.3f} ms, bound {bms:.4f} ms by {by}); the chunk's "
+        f"rays visit {work['all_blocks']} blocks, {work['blocks']} before "
+        f"their lists are settled, {work['distinct_blocks']} distinct; "
+        f"card: {card}")
+    # the inward bench bake: warm, and B8 on its first chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    RAD.bake_radiance(*in_inputs, **in_kw)
+    torch.cuda.synchronize()
+    warm_in_s = time.perf_counter() - t0
+    ms_i = cuda_ms(lambda: MP.march(grid_i, o_i, d_i, **imkw), reps=10)
+    pms_i = cuda_ms(lambda: MP.march_plain(grid_i, o_i, d_i, **imkw), reps=2,
+                    warmup=1)
+    work_i = march_work(grid_i, o_i, d_i, in_t,
+                        **{x: imkw[x] for x in ("n_steps", "kmax", "k")})
+    bms_i, by_i = march_bound(work_i, len(o_i), imkw["k"])
+    log(f"[bake timing] inward bench bake (k 16): warm {warm_in_s:.3f} s; "
+        f"B8 on its first chunk {ms_i:.4f} ms (plain {pms_i:.3f} ms, bound "
+        f"{bms_i:.4f} ms by {by_i}); the chunk's rays visit "
+        f"{work_i['all_blocks']} blocks, {work_i['blocks']} before their "
+        f"lists are settled, {work_i['distinct_blocks']} distinct; grid res "
+        f"{grid_i.res}, cap {grid_i.cell_cap}; card: {card}")
+    # the brute and the grid tracer on each side of bake_radiance's switch
+    # (the grid from 4,096 surfels)
+    for n_s, seed in ((3000, 5), (6000, 6)):
+        inp, az_s = small_bake_inputs(n=n_s, seed=seed)
+        inp, az_s = [x.to(dev) for x in inp], az_s.to(dev)
+        t_b = {ug: host_ms(lambda: RAD.bake_radiance(
+            *inp, azimuth=az_s, sample_num=BAKE_SAMPLES, use_grid=ug),
+            reps=3, warmup=1) for ug in (False, True)}
+        log(f"[bake timing] bake_radiance of {inp[0].shape[0]} inward "
+            f"surfels x S={BAKE_SAMPLES}: brute {t_b[False]:.3f} ms, grid "
+            f"{t_b[True]:.3f} ms (median of 3, warm); card: {card}")
+    entry = {"route": "cuda", "source": "svgir_tpu_torch/csrc/march.cu",
+             "replaces": "svgir_tpu/ops/march_pallas.py:66",
+             "launches": launches["march"], "library_ms": None}
+    return [{"name": "march", **entry, "max_abs_err": err, "ms": ms,
+             "plain_ms": pms, "bound_ms": bms, "bound_by": by},
+            {"name": "march_inward_bench", **entry, "max_abs_err": err_i,
+             "ms": ms_i, "plain_ms": pms_i, "bound_ms": bms_i,
+             "bound_by": by_i}]
+
+
 def main() -> int:
     try:
         import torch
@@ -684,7 +1151,8 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------
     t0 = time.time()
     build.build()
-    for stem in ("binning", "blend_forward", "blend_backward"):
+    for stem in ("binning", "blend_forward", "blend_backward", "env_lookup",
+                 "march"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")
@@ -927,7 +1395,7 @@ def main() -> int:
             raise AssertionError(f"stage-2 train: non-finite values in {k}")
     if not bool((env2["opt"]["m"]["env"] != 0).any()):
         raise AssertionError("stage-2 train: the env got no gradient")
-    for k in kernels.KERNEL_NAMES:
+    for k in STAGE2_KERNELS:
         if s2_train_launches[k] < steps:
             raise AssertionError(f"stage-2 train launched {k} "
                                  f"{s2_train_launches[k]} times in {steps} "
@@ -1041,8 +1509,14 @@ def main() -> int:
         f"real rows, {wk2['pairs']} pairs, {wk2['ok']} pass the footprint "
         f"test, {wk2['gated']} blend; {fa[1].numel()} env queries per step")
 
-    if "--profile" in sys.argv[1:-1]:
-        out_dir = sys.argv[sys.argv.index("--profile") + 1]
+    log(f"[stage 2] {time.time() - t_start:.1f} s")
+
+    # ---- 12-16. the radiance bake ------------------------------------------
+    out_dir = sys.argv[sys.argv.index("--profile") + 1] \
+        if "--profile" in sys.argv[1:-1] else None
+    report.extend(run_bake(state, cam, opt, cfg, bg, card, dev, out_dir))
+
+    if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)
         profile_step(lambda: step2(*s2_args), out_dir,
                      "chip_smoke_profile_stage2.txt")

@@ -13,7 +13,8 @@ from collections import Counter
 LAUNCHES: Counter = Counter()
 
 KERNEL_NAMES = ("binning_counts", "binning_instances", "blend_forward",
-                "blend_backward", "env_lookup_forward", "env_lookup_backward")
+                "blend_backward", "env_lookup_forward", "env_lookup_backward",
+                "march")
 
 
 def reset_launches() -> None:

@@ -1,23 +1,101 @@
-"""The per-step part of the radiance model: the one-bounce irradiance at one
-chosen sample per surfel and the radiance-consistency loss of the stage-2
-step.
+"""The radiance model of stage 2: the bake (hemisphere-sample every surfel,
+trace the samples, store radiance, visibility, first hit and its uv), the
+one-bounce irradiance at one chosen sample per surfel and the
+radiance-consistency loss of the stage-2 step.
 
-Mirrors ``svgir_tpu.models.radiance`` (reference
-``gaussian_model.py:544-575`` and ``intersect_test.slang:1143-1378``).
-The bake that produces the buffers (``bake_radiance``: hemisphere samples,
-visibility, first hits and their uv, baked radiance) and the full-S
-``irradiance_full`` are not ported yet; the step takes a bake as input.
+Mirrors ``svgir_tpu.models.radiance`` (reference ``gaussian_model.py:
+466-575`` and ``intersect_test.slang:1143-1378, 1879-1990``).  The full-S
+``irradiance_full`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from svgir_tpu_torch.models import gaussians as G
+from svgir_tpu_torch.models.lights import equirect_grid_coords
+from svgir_tpu_torch.ops import grid_tracer, tracing
+from svgir_tpu_torch.utils.graphics import fibonacci_sphere_sampling
 from svgir_tpu_torch.utils.transforms import normalize
+
+
+def _march_extent(means, scales) -> float:
+    """March range of the grid tracer: the AABB diagonal of the surfels
+    plus a 3-sigma margin at each end, on the host in numpy as
+    ``svgir_tpu``'s bake computes it (the reference march is unbounded)."""
+    m_np = means.detach().cpu().numpy()
+    margin = 3.0 * float(scales.detach().cpu().numpy().max())
+    diag = float(np.linalg.norm(m_np.max(0) - m_np.min(0))) \
+        if m_np.size else 1.0
+    return max(diag + 2.0 * margin, 1e-3)
+
+
+def bake_radiance(means: torch.Tensor, scales: torch.Tensor,
+                  quats: torch.Tensor, opacity: torch.Tensor,
+                  shs: torch.Tensor, *, sample_num: int = 64,
+                  azimuth: Optional[torch.Tensor] = None, k_hits: int = 16,
+                  ray_chunk: int = 65536,
+                  use_grid: Optional[bool] = None) -> Dict:
+    """Trace ``sample_num`` hemisphere samples from every surfel
+    (update_radiace, gaussian_model.py:466-522) and march them.
+
+    The spiral of each surfel turns by 2*pi*azimuth: ``azimuth`` [N, 1]
+    uniform in [0, 1) (the caller draws it), or none (unturned).
+    The grid tracer (``ops/grid_tracer``, its march on kernel B8) is the
+    default from 4096 surfels; below that, and with ``use_grid=False``,
+    the brute tracer (``tracing.nearest_hits``), which gives the same hits.
+    Rays run in chunks of ``ray_chunk``; the results do not depend on it.
+
+    Returns radiance [N, S, 3], visibility [N, S, 1], incident_dirs
+    [N, S, 3], incident_areas [N, S, 1], incident_qxy [N, S, 2] (the
+    equirect grid coordinates of the directions), hit_idx [N, S], uv
+    [N, S, 2] and exhausted_frac (0-d: the share of rays that used all
+    k_hits hits while still marching).
+    """
+    n = means.shape[0]
+    s = sample_num
+    dev = means.device
+    geo = tracing.build_surfel_geometry(means, scales, quats, opacity)
+    dirs, areas = fibonacci_sphere_sampling(geo.normal, s, azimuth)
+    rays_o = means.repeat_interleave(s, 0)
+    rays_d = dirs.reshape(-1, 3)
+    self_idx = torch.arange(n, dtype=torch.int32,
+                            device=dev).repeat_interleave(s)
+
+    if use_grid is None:
+        use_grid = n >= 4096
+    if use_grid:
+        grid_t_max = _march_extent(means, scales)
+        grid = grid_tracer.build_grid_auto(geo,
+                                           res=grid_tracer.auto_res(geo))
+        n_steps = grid_tracer._concrete_n_steps(grid, grid_t_max)
+
+    outs = []
+    for r0 in range(0, n * s, ray_chunk):
+        sl = slice(r0, min(r0 + ray_chunk, n * s))
+        o, d = rays_o[sl], rays_d[sl]
+        if use_grid:
+            hits = grid_tracer.nearest_hits_grid(
+                geo, grid, o, d, t_max=grid_t_max, k=k_hits, n_steps=n_steps)
+        else:
+            hits = tracing.nearest_hits(geo, o, d, k=k_hits)
+        outs.append(tracing.radiance_march(hits, self_idx[sl], shs, means, o))
+    cat = {k: torch.cat([x[k] for x in outs], 0) for k in outs[0]}
+    qx, qy = equirect_grid_coords(dirs)
+    return {
+        "radiance": cat["radiance"].reshape(n, s, 3),
+        "visibility": cat["visibility"].reshape(n, s, 1),
+        "incident_dirs": dirs,
+        "incident_areas": areas,
+        "incident_qxy": torch.stack([qx, qy], -1),
+        "hit_idx": cat["first_hit"].reshape(n, s),
+        "uv": cat["first_uv"].reshape(n, s, 2),
+        "exhausted_frac": cat["exhausted"].to(torch.float32).mean(),
+    }
 
 
 def shading_brdf_simple(view_dir, light_dir, normal, albedo, roughness):

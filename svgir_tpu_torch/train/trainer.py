@@ -7,8 +7,9 @@ binner-overflow growth of ``max_instances``.  Densification, opacity reset,
 checkpointing and staging are not ported yet: ``train_stage1`` raises
 ``NotImplementedError`` at an iteration where a densify or opacity-reset
 cadence would act, instead of skipping it.  Stage 2 (``train_stage2``)
-takes the radiance bake as an input (``bake_radiance`` is not ported yet)
-and raises for the periodic checkpoint, test and visualization tasks.
+starts with the radiance bake over the alive surfels
+(``bake_radiance_compact``), unless it is given one, and raises for the
+periodic checkpoint, test and visualization tasks.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models import lights as LT
+from svgir_tpu_torch.models import radiance as RAD
 from svgir_tpu_torch.render.stage1 import render_stage1
 from svgir_tpu_torch.render.svgss import render_svgss
 from svgir_tpu_torch.train import optim
@@ -246,6 +248,7 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
                  sample_num: int = 64, env_resolution: int = 16,
                  first_iter: int = 30_000, iterations: int = 50_000,
                  seed: int = 0, log_every: int = 50, callback=None,
+                 bake_azimuth: Optional[torch.Tensor] = None,
                  env_state=None, opt_state=None,
                  checkpoint_interval: int = 0, test_interval: int = 0,
                  vis_interval: int = 0, auto_grow_instances: bool = True,
@@ -254,33 +257,39 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
     opt_state, env_state, bake, history).
 
     ``state`` must be PBR-upgraded (``models.gaussians.upgrade_to_pbr``).
-    ``bake`` is required: ``bake_radiance`` is not ported yet, and the
-    periodic checkpoint, test and visualization tasks are not either, so a
-    missing bake or a nonzero interval raises ``NotImplementedError``.
-    ``radiances`` and ``radiance_ratio`` are initialized from the bake when
-    absent; a new env map draws from a generator seeded with ``seed``.
+    Without a ``bake`` the loop first bakes radiance over the alive
+    surfels (``bake_radiance_compact``, update_radiace at train.py:59):
+    the spirals turn by ``bake_azimuth`` [n_alive, 1] when given, else by
+    draws from the loop's generator seeded with ``seed``.  ``radiances``
+    and ``radiance_ratio`` are initialized from the bake when absent; a
+    new env map draws from the loop's generator (after the bake's draws).
+    The periodic
+    checkpoint, test and visualization tasks are not ported yet: a nonzero
+    interval raises ``NotImplementedError``.
     """
-    if bake is None:
-        raise NotImplementedError(
-            "train_stage2 needs a radiance bake: bake_radiance is not "
-            "ported to svgir_tpu_torch yet")
     if checkpoint_interval or test_interval or vis_interval:
         raise NotImplementedError(
             "checkpoint, test and visualization intervals are not ported "
             "to svgir_tpu_torch yet")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = dict(state["params"])
+    if bake is None:
+        if bake_azimuth is None:
+            bake_azimuth = torch.rand(int(state["alive"].sum()), 1,
+                                      generator=gen, device=device)
+        bake = bake_radiance_compact(params, state["alive"],
+                                     sample_num=sample_num,
+                                     azimuth=bake_azimuth)
     bake = {k: v for k, v in bake.items() if k != "exhausted_frac"}
 
-    params = dict(state["params"])
     if "radiances" not in params or params["radiances"].shape[1] != sample_num:
         params["radiances"] = bake["radiance"].clone()
         params["radiance_ratio"] = torch.ones((), device=device)
     state = {**state, "params": params}
 
     if env_state is None:
-        env_state = LT.direct_light_map_init(
-            env_resolution, opt.light_init,
-            generator=torch.Generator(device=device).manual_seed(seed),
-            device=device)
+        env_state = LT.direct_light_map_init(env_resolution, opt.light_init,
+                                             generator=gen, device=device)
 
     lrs = optim.group_lrs(opt, spatial_lr_scale, use_pbr=True)
     if opt_state is None:
@@ -325,3 +334,66 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
             if callback:
                 callback(entry, state, env_state)
     return state, opt_state, env_state, bake, history
+
+
+EXHAUSTED_TOL = 0.01    # share of bake rays that may use up their hit list
+MAX_K_HITS = 128        # the exhausted re-bake doubles k_hits up to this
+
+
+def bake_radiance_compact(params, alive, *, sample_num: int,
+                          azimuth: Optional[torch.Tensor] = None,
+                          k_hits: int = 16) -> Dict:
+    """Bake over the alive surfels only, then expand the buffers to
+    capacity rows (dead rows: radiance 0, visibility 1, areas 2*pi, hit
+    -1) with the hit indices mapped back to capacity rows.
+
+    ``azimuth`` [n_alive, 1] turns the spirals (a re-bake reuses it).
+    Rays that use up their K-hit list composite a truncated radiance, which
+    the reference march never does: when more than 1% of the rays do, the
+    bake warns and runs again with ``k_hits`` doubled, up to
+    ``MAX_K_HITS``."""
+    cap = alive.shape[0]
+    idx = torch.nonzero(alive)[:, 0]                       # compact -> cap
+    n_alive = idx.shape[0]
+    sub = {k: params[k][idx] for k in
+           ("xyz", "scaling", "rotation", "opacity", "shs_dc", "shs_rest")}
+    while True:
+        bake_c = RAD.bake_radiance(
+            sub["xyz"], G.get_scaling(sub), G.get_rotation(sub),
+            G.get_opacity(sub)[:, 0], G.get_shs(sub), sample_num=sample_num,
+            azimuth=azimuth, k_hits=k_hits)
+        frac = float(bake_c["exhausted_frac"])
+        if frac <= EXHAUSTED_TOL or k_hits >= MAX_K_HITS:
+            if frac > EXHAUSTED_TOL:
+                print(f"WARNING: radiance bake still has {frac:.1%} "
+                      f"exhausted rays at k_hits={k_hits} (max reached)",
+                      flush=True)
+            break
+        print(f"WARNING: {frac:.1%} of bake rays exhausted the {k_hits}-hit "
+              f"list; re-baking with k_hits={k_hits * 2}", flush=True)
+        k_hits *= 2
+
+    def expand(x, fill=0.0):
+        out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                         device=x.device)
+        out[idx] = x
+        return out
+
+    hit_c = bake_c["hit_idx"]
+    hit_cap = torch.where(hit_c >= 0,
+                          idx[torch.clamp(hit_c, 0, max(n_alive - 1, 0))
+                              .long()].to(torch.int32),
+                          torch.full_like(hit_c, -1))
+    dirs = expand(bake_c["incident_dirs"])
+    qx, qy = LT.equirect_grid_coords(dirs)      # dead rows' too
+    return {
+        "radiance": expand(bake_c["radiance"]),
+        "visibility": expand(bake_c["visibility"], fill=1.0),
+        "incident_dirs": dirs,
+        "incident_areas": expand(bake_c["incident_areas"],
+                                 fill=2.0 * 3.141592653589793),
+        "incident_qxy": torch.stack([qx, qy], -1),
+        "hit_idx": expand(hit_cap, fill=-1),
+        "uv": expand(bake_c["uv"]),
+        "exhausted_frac": bake_c["exhausted_frac"],
+    }

@@ -109,7 +109,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert sorted(build._targets()) == ["binning", "blend_backward",
-                                        "blend_forward", "env_lookup"]
+                                        "blend_forward", "env_lookup",
+                                        "march"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 

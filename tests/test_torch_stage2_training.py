@@ -1,26 +1,38 @@
 """svgir_tpu_torch's stage-2 loop on the CPU: ``train_stage2`` with a given
-(synthetic) radiance bake fits a tiny scene, and refuses what it does not
-implement yet.
+(synthetic) radiance bake fits a tiny scene and refuses what it does not
+implement yet; without a bake it bakes first and trains like the JAX loop.
 
-The port's counterpart of ``test_stage2_trains`` in
-tests/test_stage2_training.py, without the bake (``bake_radiance`` is not
-ported yet): the bake's buffers are made as ``bench_stage2.py`` makes
-them.  Port only, so no tolerance against the reference: the loss must
+``test_train_stage2_fits_with_a_given_bake`` is the port's counterpart of
+``test_stage2_trains`` in tests/test_stage2_training.py, with the bake's
+buffers made as ``bench_stage2.py`` makes them: port only, the loss must
 fall and every state must stay finite.
+``test_train_stage2_bakes_and_trains_like_jax`` holds the loop with its
+own bake to ``svgir_tpu``'s on the same azimuth draws.
 """
 
 import dataclasses
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from svgir_tpu.cameras import look_at_camera as j_look_at
+from svgir_tpu.config import OptimizationConfig as JOpt
+from svgir_tpu.config import RasterConfig as JCfg
+from svgir_tpu.models import gaussians as JG
+from svgir_tpu.train import optim as joptim
+from svgir_tpu.train import trainer as jtrainer
 
 from svgir_tpu_torch.cameras import look_at_camera
 from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models import lights as LT
 from svgir_tpu_torch.ops.rasterizer import rasterize
+from svgir_tpu_torch.train import optim as toptim
+from svgir_tpu_torch.train import trainer as ttrainer
 from svgir_tpu_torch.train.trainer import train_stage2
 from svgir_tpu_torch.utils.graphics import fibonacci_sphere_sampling
 from svgir_tpu_torch.utils.transforms import normalize
@@ -115,16 +127,15 @@ def test_train_stage2_zeroes_the_radiance_lr_after_a_thousand(
     assert seen == rates
 
 
-@pytest.mark.parametrize("kw", [dict(bake=None), dict(checkpoint_interval=5),
+@pytest.mark.parametrize("kw", [dict(checkpoint_interval=5),
                                 dict(test_interval=5), dict(vis_interval=5)],
-                         ids=["no_bake", "checkpoint", "test", "vis"])
+                         ids=["checkpoint", "test", "vis"])
 def test_train_stage2_refuses_what_is_not_ported(kw):
     state, cams, bake = _setup()
     args = dict(bake=bake, raster_cfg=CFG, sample_num=S, first_iter=0,
                 iterations=2, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError,
-                       match="bake_radiance" if "bake" in kw else "interval"):
+    with pytest.raises(NotImplementedError, match="interval"):
         train_stage2(state, cams, OptimizationConfig(), **args)
 
 
@@ -147,3 +158,76 @@ def test_train_stage2_grows_the_instance_cap_on_overflow(monkeypatch):
         device="cpu")
     assert hist[0].get("overflow") == 1.0
     assert caps[:2] == [256, 512]
+
+
+W = H = 32         # the JAX-parity scene's image
+
+
+def _stage2_scene():
+    """A PBR state of 160 surfels on a sphere of radius 0.35 facing its
+    centre (normals more than 60 degrees from -z), its target image and env
+    map, as numpy.  The camera sits inside, looking down -z: the surfels
+    fill its view, so no pixel's depth normal is formed from the near-zero
+    opacity of an edge, where depth2normal turns float32 rounding into a
+    2e-3 relative difference of the surface loss between the packages."""
+    rng = np.random.default_rng(41)
+    d = rng.standard_normal((600, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d[d[:, 2] < 0.5][:160]
+    st = G.upgrade_to_pbr(G.init_from_points(
+        d * 0.35, rng.random((160, 3)).astype(np.float32), normals=-d,
+        capacity=192, rotation_init="normal", device="cpu"))
+    p = G.params_to_numpy(st["params"])
+    p["opacity"] = np.where(np.arange(192)[:, None] < 160,
+                            rng.normal(size=(192, 1)) + 1.0,
+                            -10.0).astype(np.float32)
+    p["scaling"] = (p["scaling"] + 0.4).astype(np.float32)
+    p["base_color"] = (0.5 * rng.normal(size=(192, 12))).astype(np.float32)
+    p["roughness"] = (0.5 * rng.normal(size=(192, 4))).astype(np.float32)
+    env = (0.5 * rng.normal(size=(8, 16, 3)) + 1.0).astype(np.float32)
+    img = rng.random((3, H, W)).astype(np.float32)
+    return p, st["alive"].numpy(), env, img
+
+
+CAM = dict(eye=[0.01, 0.02, 0.0], target=[0.0, 0.0, -1.0], up=[0, -1, 0],
+           fovx=math.pi / 3, fovy=math.pi / 3, width=W, height=H)
+
+
+def test_train_stage2_bakes_and_trains_like_jax():
+    """``train_stage2(bake=None)``: three steps from the port's own bake
+    against the JAX loop with ``bake_key``, the port given the same
+    azimuth draws; the env map is given to both."""
+    p, alive, env, img = _stage2_scene()
+    key = jax.random.PRNGKey(9)
+    kw = dict(sample_num=8, env_resolution=8, first_iter=0, iterations=3,
+              log_every=1)
+    jcam = dataclasses.replace(j_look_at(**CAM), image=jnp.asarray(img),
+                               image_mask=jnp.ones((1, H, W)))
+    jstate = {"params": {k: jnp.asarray(v) for k, v in p.items()},
+              "alive": jnp.asarray(alive),
+              "stats": JG.init_stats(alive.shape[0])}
+    jenv = {"params": {"env": jnp.asarray(env)}}
+    jenv["opt"] = joptim.adam_init(jenv["params"])
+    _, _, _, jbake, jhist = jtrainer.train_stage2(
+        jstate, [jcam], JOpt(), raster_cfg=JCfg(max_instances=1 << 14),
+        bake_key=key, env_state=jenv, **kw)
+
+    tcam = look_at_camera(**CAM, image=img, device="cpu")
+    tstate = {"params": G.params_from_jax(p, device="cpu"),
+              "alive": torch.as_tensor(alive),
+              "stats": G.init_stats(alive.shape[0], device="cpu")}
+    tenv = {"params": {"env": torch.as_tensor(env)}}
+    tenv["opt"] = toptim.adam_init(tenv["params"])
+    az = torch.as_tensor(np.array(jax.random.uniform(key,
+                                                     (int(alive.sum()), 1))))
+    _, _, _, tbake, thist = ttrainer.train_stage2(
+        tstate, [tcam], OptimizationConfig(),
+        raster_cfg=RasterConfig(max_instances=1 << 14), bake_azimuth=az,
+        env_state=tenv, device="cpu", **kw)
+
+    np.testing.assert_array_equal(tbake["hit_idx"].numpy(),
+                                  np.asarray(jbake["hit_idx"]))
+    assert int((tbake["hit_idx"] >= 0).sum()) > 0
+    np.testing.assert_allclose([h["loss"] for h in thist],
+                               [h["loss"] for h in jhist], rtol=1e-5,
+                               atol=1e-5)
