@@ -77,6 +77,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  visits each chunk's data needs; the brute and the grid
                  bake at 3,000 and 6,000 surfels (either side of the
                  switch at 4,096).
+  The tile-major paths (RasterConfig(strip=0), train.py --strip 0, and the
+  sort binner, binner="sort") with B5/B6 (csrc/blend_forward.cu,
+  csrc/blend_backward.cu, tile-major entries) and the column copies B9:
+  17. strip0 train  five train_stage1 steps with strip=0 at the snug cap:
+                 finite, no overflow; B5/B6 launched every step, B3/B4
+                 never; launch counts reset just before and read just after.
+  18. strip0 kernels B5/B6 against their plain versions on one strip-0
+                 step's inputs, and against B3/B4 on the same inputs: B5's
+                 output assembled to image layout equals B3's image within
+                 TOL_IMG with eff equal, B6's rows B4's within TOL_ROWS.
+  19. strip0 s2  five stage-2 steps (S = 24) and an eval render at strip 0;
+                 B5/B6 at CA 13 / CV 13 and B5 at 16 / 16 checked as in 18.
+  20. sort       render_view_stage1 with the sort binner at the snug cap:
+                 B5 launched, B1-B4 not; its integers on the card equal the
+                 CPU's on the same preprocess outputs and the counting
+                 binner's layout; the image equals the counting render.
+  21. small      the small scene forward and backward on both tile-major
+                 branches, card against CPU, and against the port's dense
+                 oracle render_dense on the card.
+  22. cols       B9 (pad_cols / slice_cols) against F.pad and the slice
+                 copy, bitwise, at M = the cap rounded up to 1024, stage-1
+                 KR -> 128 -> KR.  B9 has no caller on any path.
+  23. timing     strip-0 against strip-8 stage-1 steps in turns, the
+                 renders (counting strip 8 / strip 0, sort) and the stage-2
+                 step and eval render at both; B5/B6/B9 per launch with
+                 their plain versions, bounds and (B9) F.pad / slice copy.
 
 The second-to-last line of output is the kernels JSON; before it the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -231,24 +257,31 @@ class Capture:
     (ops functions looked up at call time)."""
 
     def __init__(self):
-        from svgir_tpu_torch.ops import (binning, blend_pallas_strip,
-                                         env_lookup_pallas)
-        self.targets = [(binning, "compute_counts"),
-                        (binning, "compute_instances"),
-                        (blend_pallas_strip, "blend_forward"),
-                        (blend_pallas_strip, "blend_backward"),
-                        (env_lookup_pallas, "env_lookup_forward"),
-                        (env_lookup_pallas, "env_lookup_backward")]
+        from svgir_tpu_torch.ops import (binning, blend_pallas,
+                                         blend_pallas_strip,
+                                         env_lookup_pallas, rasterizer)
+        # (module, function, key in ``calls``)
+        self.targets = [
+            (binning, "compute_counts", "compute_counts"),
+            (binning, "compute_instances", "compute_instances"),
+            (blend_pallas_strip, "blend_forward", "blend_forward"),
+            (blend_pallas_strip, "blend_backward", "blend_backward"),
+            (blend_pallas, "blend_forward", "blend_forward_tiles"),
+            (blend_pallas, "blend_backward", "blend_backward_tiles"),
+            (rasterizer, "bin_instances", "bin_instances"),
+            (env_lookup_pallas, "env_lookup_forward", "env_lookup_forward"),
+            (env_lookup_pallas, "env_lookup_backward",
+             "env_lookup_backward")]
         self.calls = {}
 
     def __enter__(self):
         self.saved = []
-        for mod, name in self.targets:
+        for mod, name, key in self.targets:
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
 
-            def rec(*a, _fn=fn, _name=name, **kw):
-                self.calls.setdefault(_name, (a, kw))
+            def rec(*a, _fn=fn, _key=key, **kw):
+                self.calls.setdefault(_key, (a, kw))
                 return _fn(*a, **kw)
             setattr(mod, name, rec)
         return self
@@ -265,14 +298,14 @@ def loss_small(bufs, tgt):
             + 1e-3 * bufs.weights.sum())
 
 
-def run_small(sc, cam, device):
+def run_small(sc, cam, device, cfg=None):
     """Forward + backward of the small scene; returns (bufs, grads)."""
     import torch
 
     from svgir_tpu_torch.config import RasterConfig
     from svgir_tpu_torch.ops.rasterizer import rasterize
 
-    cfg = RasterConfig(max_instances=1 << 18)
+    cfg = cfg or RasterConfig(max_instances=1 << 18)
     args = {k: v.detach().clone().requires_grad_(True) for k, v in sc.items()}
     bg = torch.tensor([0.2, 0.1, 0.4], device=device)
     tgt = torch.rand(3, cam.height, cam.width,
@@ -326,12 +359,55 @@ def compare_blend(calls, label):
         return _compare_blend(calls, label)
 
 
+def check_image(ki, pi, nch, tag):
+    """A blend image (kernel ``ki``) against its reference ``pi``, both
+    [CA+CV+2, Hp, Wp]: channel sums within TOL_IMG, logT within 1e-5
+    (TOL_LOGT_SAT where saturated), n_contrib at all but 1e-4 of the
+    pixels; returns (max channel error, max logT error, n_contrib
+    mismatches)."""
+    from svgir_tpu_torch.ops.common import LOG_T_EPS
+
+    err_img = float((ki[:nch] - pi[:nch]).abs().max()) if nch else 0.0
+    lim = TOL_IMG * (1 + pi[:nch].abs())
+    if not bool(((ki[:nch] - pi[:nch]).abs() <= lim).all()):
+        raise AssertionError(f"{tag} channel sums differ by {err_img}")
+    lt_k, lt_p = ki[nch], pi[nch]
+    sat = lt_p < LOG_T_EPS
+    err_lt = float((lt_k - lt_p).abs().max())
+    if bool((lt_k - lt_p)[~sat].abs().max() > 1e-5) or \
+            (bool(sat.any()) and
+             bool((lt_k - lt_p)[sat].abs().max() > TOL_LOGT_SAT)):
+        raise AssertionError(f"{tag} logT differs by {err_lt}")
+    nc_bad = int((ki[nch + 1] != pi[nch + 1]).sum())
+    if nc_bad > ki[nch + 1].numel() // 10000:
+        raise AssertionError(f"{tag} n_contrib differs at {nc_bad} pixels")
+    return err_img, err_lt, nc_bad
+
+
+def check_rows(kd, pd, ca, tag):
+    """Gradient rows d_slab against a reference, each row kind within
+    TOL_ROWS of its largest magnitude; returns the max absolute error."""
+    err = 0.0
+    kinds = {"mean2d": slice(0, 2), "conic": slice(2, 5),
+             "opacity": slice(5, 6), "jinv": slice(6, 10),
+             "lam": slice(10, 12), "plain": slice(12, 12 + ca),
+             "vertex": slice(12 + ca, None)}
+    for kind, sl in kinds.items():
+        if pd[:, sl].numel() == 0:
+            continue
+        e = max_err_rel(kd[:, sl], pd[:, sl])
+        err = max(err, float((kd[:, sl] - pd[:, sl]).abs().max()))
+        if e > TOL_ROWS:
+            raise AssertionError(f"{tag} {kind} rows differ by {e} of their "
+                                 "largest magnitude")
+    return err
+
+
 def _compare_blend(calls, label):
     import torch
 
     from svgir_tpu_torch.kernels import blend as K
     from svgir_tpu_torch.ops import blend_pallas_strip as P
-    from svgir_tpu_torch.ops.common import LOG_T_EPS
 
     a, kw = calls["blend_forward"]
     ki, ke, kwsum = K.blend_forward(*a, **kw)
@@ -341,22 +417,7 @@ def _compare_blend(calls, label):
     if not torch.equal(ke, pe):
         raise AssertionError(f"B3 [{label}] eff differs: "
                              f"{int((ke != pe).sum())} tiles")
-    nch = ca + cv
-    err_img = float((ki[:nch] - pi[:nch]).abs().max()) if nch else 0.0
-    lim = TOL_IMG * (1 + pi[:nch].abs())
-    if not bool(((ki[:nch] - pi[:nch]).abs() <= lim).all()):
-        raise AssertionError(f"B3 [{label}] channel sums differ by {err_img}")
-    lt_k, lt_p = ki[nch], pi[nch]
-    sat = lt_p < LOG_T_EPS
-    err_lt = float((lt_k - lt_p).abs().max())
-    if bool((lt_k - lt_p)[~sat].abs().max() > 1e-5) or \
-            (bool(sat.any()) and
-             bool((lt_k - lt_p)[sat].abs().max() > TOL_LOGT_SAT)):
-        raise AssertionError(f"B3 [{label}] logT differs by {err_lt}")
-    nc_bad = int((ki[nch + 1] != pi[nch + 1]).sum())
-    if nc_bad > ki[nch + 1].numel() // 10000:
-        raise AssertionError(f"B3 [{label}] n_contrib differs at {nc_bad} "
-                             "pixels")
+    err_img, err_lt, nc_bad = check_image(ki, pi, ca + cv, f"B3 [{label}]")
     err_w = 0.0
     if kwsum is not None:
         err_w = max_err_rel(kwsum, pwsum)
@@ -372,19 +433,7 @@ def _compare_blend(calls, label):
     kd = K.blend_backward(*b, **bkw)
     pd = P.blend_backward_plain(*b, **bkw)
     torch.cuda.synchronize()
-    err4 = 0.0
-    kinds = {"mean2d": slice(0, 2), "conic": slice(2, 5),
-             "opacity": slice(5, 6), "jinv": slice(6, 10),
-             "lam": slice(10, 12), "plain": slice(12, 12 + ca),
-             "vertex": slice(12 + ca, None)}
-    for kind, sl in kinds.items():
-        if pd[:, sl].numel() == 0:
-            continue
-        e = max_err_rel(kd[:, sl], pd[:, sl])
-        err4 = max(err4, float((kd[:, sl] - pd[:, sl]).abs().max()))
-        if e > TOL_ROWS:
-            raise AssertionError(f"B4 [{label}] {kind} rows differ by {e} of "
-                                 "their largest magnitude")
+    err4 = check_rows(kd, pd, ca, f"B4 [{label}]")
     log(f"[kernels] {label}: B3 max|err| img {err_img:.3g} logT {err_lt:.3g} "
         f"wsum(rel) {err_w:.3g}; B4 max|err| {err4:.3g}; "
         f"n_contrib mismatches {nc_bad}")
@@ -416,31 +465,31 @@ def bwd_gated_ops(ca, cv, has_gwsum):
     return 7 + 4 * ca + int(has_gwsum) + (84 + 17 * cv if cv else 0)
 
 
-def bounds(calls):
+def bounds(calls, tiles=False):
     """Least time (ms) the card could take for each kernel's work on the
     captured inputs: max(bytes / HBM rate, operations / float32 rate), each
     input read once and each output written once.  The blend's work is
     counted on these inputs by the plain forward: the real rows of the
     chunks each tile processes, and their (pixel, row) pairs that are
-    tested, pass the footprint test, and blend."""
+    tested, pass the footprint test, and blend.  ``tiles``: the tile-major
+    blend B5/B6 (keys ``blend_*_tiles``), whose output carries the chunks
+    processed as one more row instead of B3's ``eff``; B6 reads the same
+    bytes as B4 (cotangent rows, logT, one chunk count per tile).  The
+    binning kernels and the backward are counted where they were
+    captured."""
     import torch
 
     from svgir_tpu_torch.ops import blend_pallas_strip as BS
 
-    a, kw = calls["compute_counts"]
-    ns = a[0].numel()
-    T = kw["grid_x"] * kw["grid_y"]
-    nchunks = ns // kw.get("gauss_chunk", 256)
-    a2, kw2 = calls["compute_instances"]
-    total_raw = int(a2[7])
-    m = kw2["m"]
-    b3, kw3 = calls["blend_forward"]
+    fwd, bwd = ("blend_forward_tiles", "blend_backward_tiles") if tiles \
+        else ("blend_forward", "blend_backward")
+    b3, kw3 = calls[fwd]
     slab, ts, tc = b3
-    kr = slab.shape[1]
+    m, kr = slab.shape
     ca, cv = kw3["ca"], kw3["cv"]
-    b4, _ = calls["blend_backward"]
-    g_wsum = b4[5]
-    hw = b4[3].shape[1] * b4[3].shape[2]
+    T = kw3["grid_x"] * kw3["grid_y"]
+    hw = T * kw3["tile"] ** 2
+    g_wsum = calls[bwd][0][-1] if bwd in calls else None   # last argument
     work = {}
     with torch.no_grad():
         BS.blend_forward_plain(*b3, **kw3, work=work)
@@ -454,13 +503,21 @@ def bounds(calls):
         tb, to = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
 
-    bound("binning_counts", 16 * ns + 4 * T + 4 * nchunks * T, total_raw)
-    bound("binning_instances", 24 * ns + 4 * nchunks * T + 8 * m,
-          total_raw * max(1, math.ceil(math.log2(ns))))
+    if "compute_counts" in calls:
+        a, kw = calls["compute_counts"]
+        ns = a[0].numel()
+        nchunks = ns // kw.get("gauss_chunk", 256)
+        a2, kw2 = calls["compute_instances"]
+        total_raw = int(a2[7])
+        bound("binning_counts", 16 * ns + 4 * T + 4 * nchunks * T, total_raw)
+        bound("binning_instances", 24 * ns + 4 * nchunks * T + 8 * kw2["m"],
+              total_raw * max(1, math.ceil(math.log2(ns))))
     rows_b = 4 * work["rows"] * kr               # real slab rows, read once
-    bound("blend_forward", rows_b + 4 * (ca + cv + 2) * hw + 12 * T
-          + (4 * m if kw3.get("emit_wsum", True) else 0), ops_fwd)
-    bound("blend_backward", rows_b + 4 * (ca + cv + 2) * hw + 8 * T
+    out_b = 4 * (ca + cv + 3) * hw + 8 * T if tiles \
+        else 4 * (ca + cv + 2) * hw + 12 * T
+    bound(fwd, rows_b + out_b + (4 * m if kw3.get("emit_wsum", True) else 0),
+          ops_fwd)
+    bound(bwd, rows_b + 4 * (ca + cv + 2) * hw + 8 * T
           + (4 * m if g_wsum is not None else 0) + 4 * m * kr, ops_bwd)
     return out
 
@@ -1121,6 +1178,435 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
              "bound_by": by_i}]
 
 
+# ---------------------------------------------------------------------------
+# the tile-major paths: strip 0 and the sort binner (B5, B6), and B9
+# ---------------------------------------------------------------------------
+
+# The port's dense oracle against its tiled paths on the card: the oracle
+# walks the Gaussians in depth-ordered batches, the kernels per pixel in
+# order, so sums differ by float32 rounding; past saturation the oracle's
+# logT keeps falling where a tile stops at its exit chunk (ROADMAP C-7), so
+# T (below 1e-4 there) and the images through it differ by up to 1e-4 of the
+# background; n_contrib may flip where logT crosses the 1e-4 gate at another
+# instance.
+TOL_DENSE_IMG = 2e-4    # absolute
+TOL_DENSE_REL = 1e-3    # depth (where opacity > 0.05) and weights, of max
+TOL_DENSE_NC = 1e-3     # share of pixels whose n_contrib may differ
+B9_KOUT = 128           # the reference's lane width: stage-1 KR -> 128
+
+
+def compare_tiles(calls, label):
+    """B5/B6 kernel vs plain on the captured inputs, and against B3/B4 on
+    the same inputs: B5's output assembled to image layout against B3's
+    image and eff, B6's rows against B4's on the same cotangents and logT
+    re-laid as images.  Returns (B5 max error, B6 max error or None)."""
+    import torch
+
+    from svgir_tpu_torch.kernels import blend as K
+    from svgir_tpu_torch.ops import blend_pallas as BP
+
+    with torch.no_grad():
+        a, kw = calls["blend_forward_tiles"]
+        ca, cv = kw["ca"], kw["cv"]
+        nch = ca + cv
+        lay = dict(grid_x=kw["grid_x"], grid_y=kw["grid_y"], tile=kw["tile"])
+        ko, kws = K.blend_forward_tiles(*a, **kw)
+        po, pws = BP.blend_forward_plain(*a, **kw)
+        bi, be, bws = K.blend_forward(*a, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(ko[:, nch + 2], po[:, nch + 2]):
+            raise AssertionError(f"B5 [{label}] chunks processed differ from "
+                                 "the plain version's")
+        ki = BP.to_image(ko[:, :nch + 2], **lay)
+        e_img, e_lt, nc_bad = check_image(
+            ki, BP.to_image(po[:, :nch + 2], **lay), nch, f"B5 [{label}]")
+        err_w = 0.0
+        if kws is not None:
+            err_w = max_err_rel(kws, pws)
+            if err_w > TOL_ROWS or max_err_rel(kws, bws) > TOL_ROWS:
+                raise AssertionError(f"B5 [{label}] weight sums differ: "
+                                     f"{err_w}")
+        if not torch.equal(ko[:, nch + 2, 0].to(torch.int32), be):
+            raise AssertionError(f"B5 [{label}] chunks processed differ from "
+                                 "B3's eff")
+        x_img, x_lt, _ = check_image(ki, bi, nch, f"B5 vs B3 [{label}]")
+        msg = (f"[kernels] {label}: B5 max|err| img {e_img:.3g} logT "
+               f"{e_lt:.3g} wsum(rel) {err_w:.3g}, n_contrib mismatches "
+               f"{nc_bad}; assembled against B3: img {x_img:.3g} logT "
+               f"{x_lt:.3g}, eff equal")
+        err5 = max(e_img, e_lt, err_w)
+        if "blend_backward_tiles" not in calls:      # a forward-only render
+            log(msg)
+            return err5, None
+        b, bkw = calls["blend_backward_tiles"]
+        kd = K.blend_backward_tiles(*b, **bkw)
+        pd = BP.blend_backward_plain(*b, **bkw)
+        slab, ts, g_out, meta, g_wsum = b
+        d4 = K.blend_backward(
+            slab, ts, meta[:, 2, 0].to(torch.int32).contiguous(),
+            BP.to_image(g_out[:, :nch + 1], **lay).contiguous(),
+            BP.to_image(meta[:, :1], **lay)[0].contiguous(), g_wsum, **bkw)
+        torch.cuda.synchronize()
+    err6 = check_rows(kd, pd, ca, f"B6 [{label}]")
+    x6 = check_rows(kd, d4, ca, f"B6 vs B4 [{label}]")
+    log(msg + f"; B6 max|err| {err6:.3g}, against B4 {x6:.3g}")
+    return err5, err6
+
+
+def check_launches(launches, label, *, at_least=(), none=()):
+    """Raise unless each kernel of ``at_least`` ((name, count) pairs) was
+    launched that often and none of ``none`` was launched."""
+    for k, n in at_least:
+        if launches[k] < n:
+            raise AssertionError(f"{label} launched {k} {launches[k]} times, "
+                                 f"expected at least {n}")
+    for k in none:
+        if launches[k]:
+            raise AssertionError(f"{label} launched {k} {launches[k]} times "
+                                 "(another path than the one asked for)")
+
+
+def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
+              profile_dir=None):
+    """Phases 17-23; returns the kernels JSON entries of B5, B6 and B9.
+    ``step8`` is the strip-8 stage-1 step with its arguments, ``s2`` the
+    stage-2 inputs with the strip-8 stage-2 step and its arguments."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.kernels import blend as KBL
+    from svgir_tpu_torch.kernels import cols as KC
+    from svgir_tpu_torch.ops import binning as BN
+    from svgir_tpu_torch.ops import blend_pallas as BP
+    from svgir_tpu_torch.ops.dense_ref import render_dense
+    from svgir_tpu_torch.ops.preprocess import preprocess
+    from svgir_tpu_torch.render.stage1 import render_view_stage1
+    from svgir_tpu_torch.render.svgss import render_view_svgss
+    from svgir_tpu_torch.train import optim, trainer
+
+    cfg0 = dataclasses.replace(cfg, strip=0)
+    strip_kernels = ("blend_forward", "blend_backward")
+    steps = 5
+    t_tiles = time.time()
+
+    # ---- 17. strip-0 train: train_stage1 with RasterConfig(strip=0) ------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    st, ost, hist = trainer.train_stage1(
+        state, [cam], opt, raster_cfg=cfg0, iterations=steps, log_every=1,
+        device=dev)
+    torch.cuda.synchronize()
+    l17 = kernels.launches()
+    log(f"[strip0 train] {steps} steps at cap {cfg0.max_instances}: " +
+        ", ".join(f"it {h['iter']} loss {h['loss']:.6f} psnr {h['psnr']:.4f}"
+                  for h in hist))
+    log(f"[strip0 train] launches {l17}")
+    for h in hist:
+        if not math.isfinite(h["loss"]) or h.get("overflow"):
+            raise AssertionError(f"strip-0 train: bad step {h}")
+    for k, v in list(st["params"].items()) + list(ost["m"].items()) + \
+            list(ost["v"].items()):
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"strip-0 train: non-finite values in {k}")
+    check_launches(l17, "strip-0 train", at_least=(
+        ("binning_counts", 1), ("binning_instances", 1),
+        ("blend_forward_tiles", steps), ("blend_backward_tiles", steps)),
+        none=strip_kernels)
+
+    # ---- 18. strip-0 kernels: B5/B6 against plain and against B3/B4 -----
+    step0 = trainer.make_train_step(opt, cfg0, bg,
+                                    lrs=optim.group_lrs(opt, 1.0), device=dev)
+    s1_args = (state, optim.adam_init(state["params"]), cam, 1.0, 1.6e-4)
+    with Capture() as cap0:
+        step0(*s1_args)
+    torch.cuda.synchronize()
+    c0 = cap0.calls
+    if any(k in c0 for k in strip_kernels):
+        raise AssertionError("the strip-0 step called the image-layout blend")
+    e5, e6 = compare_tiles(c0, "strip 0, bench step")
+
+    # ---- 19. stage 2 at strip 0: five S = 24 steps and an eval render ----
+    s2_state, bake, env0, step2_8, s2_args8 = s2
+    step2_0 = trainer.make_svgss_train_step(
+        opt, cfg0, bg, lrs=optim.group_lrs(opt, 1.0, use_pbr=True),
+        device=dev)
+    st2 = {**s2_state, "stats": state["stats"]}
+    ost2, env2 = optim.adam_init(st2["params"]), env0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s2_hist = []
+    for i in range(steps):
+        st2, ost2, env2, tb2 = step2_0(st2, ost2, env2, bake, cam, 100.0 + i,
+                                       1e-5, opt.radiance_lr)
+        s2_hist.append((float(tb2["loss"]), bool(tb2["overflow"])))
+    torch.cuda.synchronize()
+    l19 = kernels.launches()
+    log(f"[strip0 s2 train] {steps} steps: losses "
+        f"{[round(x, 6) for x, _ in s2_hist]}; launches {l19}")
+    if any(not math.isfinite(x) or o for x, o in s2_hist):
+        raise AssertionError(f"strip-0 stage-2 train: bad step {s2_hist}")
+    for k, v in list(st2["params"].items()) + [("env",
+                                                env2["params"]["env"])]:
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"strip-0 stage-2 train: non-finite {k}")
+    check_launches(l19, "strip-0 stage-2 train", at_least=(
+        ("blend_forward_tiles", steps), ("blend_backward_tiles", steps),
+        ("env_lookup_forward", steps), ("env_lookup_backward", steps)),
+        none=strip_kernels)
+    s2_args0 = ({**s2_state, "stats": state["stats"]},
+                optim.adam_init(s2_state["params"]), env0, bake, cam, 100.0,
+                1e-5, opt.radiance_lr)
+    with Capture() as cap19:
+        step2_0(*s2_args0)
+
+    def render_s2(c):
+        with torch.no_grad():
+            return render_view_svgss(cam, s2_state["params"], bake,
+                                     env0["params"], bg, is_training=False,
+                                     alive=s2_state["alive"], cfg=c)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Capture() as cap19e:
+        res2 = render_s2(cfg0)
+    torch.cuda.synchronize()
+    l19e = kernels.launches()
+    for k in ("render", "pbr", "pbr_env", "base_color", "direct", "indirect"):
+        if tuple(res2[k].shape) != (3, cam.height, cam.width) or \
+                not bool(torch.isfinite(res2[k]).all()):
+            raise AssertionError(f"strip-0 stage-2 render: bad {k} image")
+    check_launches(l19e, "strip-0 stage-2 eval render",
+                   at_least=(("blend_forward_tiles", 1),
+                             ("env_lookup_forward", 1)), none=strip_kernels)
+    widths = [(c.calls["blend_forward_tiles"][1]["ca"],
+               c.calls["blend_forward_tiles"][1]["cv"]) for c in (cap19,
+                                                                  cap19e)]
+    if widths != [(13, 13), (16, 16)]:
+        raise AssertionError(f"strip-0 stage-2 blend widths {widths}")
+    e5s2, e6s2 = compare_tiles(cap19.calls,
+                               "strip 0, stage-2 step CA=13 CV=13")
+    e5s2e, _ = compare_tiles(cap19e.calls, "strip 0, stage-2 eval CA=16 CV=16")
+
+    # ---- 20. the sort binner: render_view_stage1(binner="sort") ----------
+    cfg_sort = RasterConfig(binner="sort", max_instances=cfg.max_instances)
+
+    def render1(c):
+        with torch.no_grad():
+            return render_view_stage1(cam, state["params"], bg,
+                                      alive=state["alive"], cfg=c)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Capture() as cap20:
+        res_sort = render1(cfg_sort)
+    torch.cuda.synchronize()
+    l20 = kernels.launches()
+    img_s = res_sort["render"]
+    if tuple(img_s.shape) != (3, cam.height, cam.width) or \
+            not bool(torch.isfinite(img_s).all()):
+        raise AssertionError("sort-binner render: bad image")
+    if bool(res_sort["overflow"]):
+        raise AssertionError("sort-binner render: overflow")
+    check_launches(l20, "sort-binner render",
+                   at_least=(("blend_forward_tiles", 1),),
+                   none=strip_kernels + ("binning_counts",
+                                         "binning_instances"))
+    img_c = render1(cfg)["render"]
+    d_img = (img_s - img_c).abs()
+    if not bool((d_img <= TOL_IMG * (1 + img_c.abs())).all()):
+        raise AssertionError(f"sort-binner render differs from the counting "
+                             f"render by {float(d_img.max())}")
+    (prep,), bkw = cap20.calls["bin_instances"]
+    prep_cpu = type(prep)(*(x.detach().cpu() for x in prep))
+    chunk, cap = cfg_sort.chunk, cfg_sort.max_instances
+    b_d = BN.bin_instances(prep, **bkw)
+    b_c = BN.bin_instances(prep_cpu, **bkw)
+    p_d = BN.pad_to_chunks(b_d, chunk=chunk, max_instances=cap)
+    p_c = BN.pad_to_chunks(b_c, chunk=chunk, max_instances=cap)
+    cnt = BN.bin_instances_counting(prep, **bkw)
+    for label, x, y, fields in (
+            ("bin_instances", b_d, b_c, BN.BinnedInstances._fields),
+            ("pad_to_chunks", p_d, p_c, BN.PaddedInstances._fields[:-1]),
+            ("counting binner", p_d, cnt, ("gaussian_id", "tile_start",
+                                           "tile_count", "num_instances"))):
+        for f in fields:
+            if not torch.equal(getattr(x, f).cpu(), getattr(y, f).cpu()):
+                raise AssertionError(f"sort binner on the card: {f} of "
+                                     f"{label} differs")
+    e5s, _ = compare_tiles(cap20.calls, "sort binner, bench render")
+    log(f"[sort] render_view_stage1(binner='sort') at cap {cap}: "
+        f"{int(b_d.num_instances)} instances ({int(p_d.num_instances)} "
+        f"padded); integers equal to the CPU's (bin_instances, "
+        f"pad_to_chunks) and to the counting binner's layout; image within "
+        f"{float(d_img.max()):.3g} of the counting render; launches {l20}")
+
+    # ---- 21. small-scene parity: card vs CPU, and vs render_dense --------
+    sc_dev, cam_dev = small_scene(dev)
+    sc_cpu, cam_cpu = small_scene("cpu")
+    small_bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
+    for label, c in (("strip 0", RasterConfig(max_instances=1 << 18,
+                                              strip=0)),
+                     ("sort", RasterConfig(max_instances=1 << 18,
+                                           binner="sort"))):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        bufs_d, grads_d = run_small(sc_dev, cam_dev, dev, c)
+        torch.cuda.synchronize()
+        check_launches(kernels.launches(), f"small scene, {label}",
+                       at_least=(("blend_forward_tiles", 1),
+                                 ("blend_backward_tiles", 1)),
+                       none=strip_kernels)
+        bufs_c, grads_c = run_small(sc_cpu, cam_cpu, "cpu", c)
+        for f in ("color", "depth", "normal", "feature", "vfeature",
+                  "opacity"):
+            e = max_err_rel(getattr(bufs_d, f).detach().cpu(),
+                            getattr(bufs_c, f).detach())
+            if e > 1e-4:
+                raise AssertionError(f"parity ({label}): {f} differs by {e}")
+        for k in grads_c:
+            e = max_err_rel(grads_d[k].cpu(), grads_c[k])
+            if e > 1e-3:
+                raise AssertionError(f"parity ({label}): d{k} differs by {e}")
+        with torch.no_grad():
+            p = preprocess(
+                sc_dev["means"], sc_dev["scales"], sc_dev["quats"],
+                cam_dev.world_view, cam_dev.full_proj, cam_dev.camera_center,
+                width=cam_dev.width, height=cam_dev.height,
+                tanfovx=cam_dev.tanfovx, tanfovy=cam_dev.tanfovy,
+                focal_x=cam_dev.focal_x, focal_y=cam_dev.focal_y,
+                colors=sc_dev["colors"], cfg=c)
+            dense = render_dense(p, sc_dev["opacity"], sc_dev["features"],
+                                 sc_dev["vfeatures"], small_bg,
+                                 width=cam_dev.width, height=cam_dev.height,
+                                 cfg=c)
+        worst = max(float((getattr(bufs_d, f).detach()
+                           - getattr(dense, f)).abs().max())
+                    for f in ("color", "normal", "feature", "vfeature",
+                              "opacity", "final_t"))
+        if worst > TOL_DENSE_IMG:
+            raise AssertionError(f"small scene ({label}) differs from "
+                                 f"render_dense by {worst}")
+        op = dense.opacity[0] > 0.05
+        e_depth = max_err_rel(bufs_d.depth.detach()[0][op], dense.depth[0][op])
+        e_w = max_err_rel(bufs_d.weights.detach(), dense.weights)
+        nc = int((bufs_d.n_contrib != dense.n_contrib).sum())
+        if e_depth > TOL_DENSE_REL or e_w > TOL_DENSE_REL or \
+                nc > TOL_DENSE_NC * dense.n_contrib.numel():
+            raise AssertionError(f"small scene ({label}) against render_dense:"
+                                 f" depth {e_depth}, weights {e_w}, n_contrib "
+                                 f"{nc} pixels")
+        log(f"[small] {label}: card == CPU (image 1e-4, gradients 1e-3 of "
+            f"max); against render_dense on the card: images within "
+            f"{worst:.3g}, depth {e_depth:.3g} and weights {e_w:.3g} of max, "
+            f"n_contrib differs at {nc} pixels")
+
+    # ---- 22. B9 against its plain versions, bitwise ----------------------
+    m9 = -(-cfg.max_instances // 1024) * 1024
+    kr = c0["blend_forward_tiles"][0][0].shape[1]
+    x9 = torch.randn(m9, kr, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    kernels.reset_launches()
+    kp = KC.pad_cols(x9, B9_KOUT)
+    ks = KC.slice_cols(kp, kr)
+    same = BP.pad_cols(x9, kr)
+    pp = BP.pad_cols_plain(x9, B9_KOUT)
+    torch.cuda.synchronize()
+    e9 = {"pad_cols": float((kp - pp).abs().max()),
+          "slice_cols": float((ks - BP.slice_cols_plain(pp, kr)).abs().max())}
+    if not (torch.equal(kp, pp) and torch.equal(ks, BP.slice_cols_plain(pp, kr))
+            and torch.equal(ks, x9) and same is x9):
+        raise AssertionError("B9 differs from its plain versions")
+    check_launches(kernels.launches(), "B9",
+                   at_least=(("pad_cols", 1), ("slice_cols", 1)))
+    log(f"[cols] B9 at M={m9}: pad {kr} -> {B9_KOUT} and slice back equal "
+        "to F.pad and the slice copy, bit for bit")
+
+    # ---- 23. timing --------------------------------------------------------
+    step8_fn, step8_args = step8
+    t = {}
+    for label, fn in (("strip 8", lambda: step8_fn(*step8_args)),
+                      ("strip 0", lambda: step0(*s1_args)),
+                      ("strip 0 again", lambda: step0(*s1_args)),
+                      ("strip 8 again", lambda: step8_fn(*step8_args))):
+        t[label] = host_ms(fn, reps=10)
+    r = {label: host_ms(lambda: render1(c), reps=10)
+         for label, c in (("counting, strip 8", cfg),
+                          ("counting, strip 0", cfg0), ("sort", cfg_sort))}
+    t2 = {label: host_ms(fn, reps=10) for label, fn in (
+        ("stage 2, strip 8", lambda: step2_8(*s2_args8)),
+        ("stage 2, strip 0", lambda: step2_0(*s2_args0)),
+        ("eval render, strip 8", lambda: render_s2(cfg)),
+        ("eval render, strip 0", lambda: render_s2(cfg0)))}
+    log(f"[tiles timing] stage-1 train step (median of 10, in turns): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items())
+        + "; forward render: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in r.items())
+        + "; " + ", ".join(f"{k} {v:.3f} ms" for k, v in t2.items())
+        + f"; cap {cfg.max_instances}; card: {card}")
+    if profile_dir:
+        profile_step(lambda: step0(*s1_args), profile_dir,
+                     "chip_smoke_profile_strip0.txt")
+
+    bnd = bounds(c0, tiles=True)
+    bnd2 = bounds(cap19.calls, tiles=True)
+    bnd2e = bounds(cap19e.calls, tiles=True)
+    bnd_s = bounds(cap20.calls, tiles=True)
+    src_f = "svgir_tpu_torch/csrc/blend_forward.cu"
+    src_b = "svgir_tpu_torch/csrc/blend_backward.cu"
+    rep_f, rep_b = ("svgir_tpu/ops/blend_pallas.py:197",
+                    "svgir_tpu/ops/blend_pallas.py:429")
+    fw, bw = "blend_forward_tiles", "blend_backward_tiles"
+    timed = {}
+    for name, calls, bd, lc, ef, eb in (
+            ("", c0, bnd, l17, e5, e6),
+            ("_stage2", cap19.calls, bnd2, l19, e5s2, e6s2),
+            ("_stage2_eval", cap19e.calls, bnd2e, l19e, e5s2e, None),
+            ("_sort", cap20.calls, bnd_s, l20, e5s, None)):
+        a5, kw5 = calls[fw]
+        timed[fw + name] = (
+            lambda a5=a5, kw5=kw5: KBL.blend_forward_tiles(*a5, **kw5),
+            lambda a5=a5, kw5=kw5: BP.blend_forward_plain(*a5, **kw5),
+            rep_f, src_f, lc[fw], ef, bd[fw], None)
+        if eb is not None:
+            a6, kw6 = calls[bw]
+            timed[bw + name] = (
+                lambda a6=a6, kw6=kw6: KBL.blend_backward_tiles(*a6, **kw6),
+                lambda a6=a6, kw6=kw6: BP.blend_backward_plain(*a6, **kw6),
+                rep_b, src_b, lc[bw], eb, bd[bw], None)
+    for name, kfn, pfn, lfn, rep, nbytes in (
+            ("pad_cols", lambda: KC.pad_cols(x9, B9_KOUT),
+             lambda: BP.pad_cols_plain(x9, B9_KOUT),
+             lambda: F.pad(x9, (0, B9_KOUT - kr)),
+             "svgir_tpu/ops/blend_pallas.py:748", 4 * m9 * (kr + B9_KOUT)),
+            ("slice_cols", lambda: KC.slice_cols(kp, kr),
+             lambda: BP.slice_cols_plain(kp, kr),
+             lambda: kp[:, :kr].contiguous(),
+             "svgir_tpu/ops/blend_pallas.py:774", 8 * m9 * kr)):
+        # launches on the main paths run above (phases 17, 19 and 20): B9
+        # has no caller in the port, so these read 0
+        lc = sum(c[name] for c in (l17, l19, l19e, l20))
+        timed[name] = (kfn, pfn, rep, "svgir_tpu_torch/csrc/cols.cu", lc,
+                       e9[name], (nbytes / HBM_BYTES_S * 1e3, "bytes"), lfn)
+    report = []
+    for name, (kfn, pfn, rep, src, lc, err, bd, lfn) in timed.items():
+        with torch.no_grad():
+            ms = cuda_ms(kfn, reps=20)
+            pms = cuda_ms(pfn, reps=3, warmup=1)
+            lms = cuda_ms(lfn, reps=20) if lfn else None
+        report.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": lc, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lms})
+        log(f"[tiles timing] {name}: {ms:.4f} ms (plain {pms:.3f} ms, bound "
+            f"{bd[0]:.4f} ms by {bd[1]}"
+            + (f", F.pad / slice copy {lms:.4f} ms" if lms else "")
+            + f"; {lc} launches on its path); card: {card}")
+    log(f"[tiles] phases 17-23: {time.time() - t_tiles:.1f} s")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -1151,8 +1637,8 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------
     t0 = time.time()
     build.build()
-    for stem in ("binning", "blend_forward", "blend_backward", "env_lookup",
-                 "march"):
+    for stem in ("binning", "blend_forward", "blend_backward", "cols",
+                 "env_lookup", "march"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")
@@ -1515,6 +2001,12 @@ def main() -> int:
     out_dir = sys.argv[sys.argv.index("--profile") + 1] \
         if "--profile" in sys.argv[1:-1] else None
     report.extend(run_bake(state, cam, opt, cfg, bg, card, dev, out_dir))
+
+    # ---- 17-23. the tile-major paths (strip 0, sort binner) and B9 -------
+    report.extend(run_tiles(
+        state, cam, opt, cfg, bg, card, dev,
+        step8=(step, (state, ost0, cam, 1.0, 1.6e-4)),
+        s2=(s2_state, bake, env0, step2, s2_args), profile_dir=out_dir))
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

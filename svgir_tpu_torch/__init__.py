@@ -1,7 +1,9 @@
-"""svgir_tpu_torch: the SVG-IR surfel rasterizer, the stage-1 trainer and
-the stage-2 (deferred-PBR) step and eval render in PyTorch, with their
-binning, blend and env-map lookup kernels written in CUDA C++ for Hopper
-(``csrc/``, bound through ``kernels/``).
+"""svgir_tpu_torch: the SVG-IR surfel rasterizer (both binners, the
+image-layout and the tile-major blend, and the dense oracle), the stage-1
+trainer, the radiance bake and the stage-2 (deferred-PBR) step and eval
+render in PyTorch, with their binning, blend, env-map lookup, grid-march
+and column-copy kernels written in CUDA C++ for Hopper (``csrc/``, bound
+through ``kernels/``).
 
 The package mirrors the layout of ``svgir_tpu`` and is held to it by the
 ``tests/test_torch_*.py`` parity tests.  It imports neither JAX nor

@@ -109,10 +109,13 @@ class RasterConfig:
     so ``tile**2`` must be a multiple of 32 and at most 1024).
     ``max_instances`` is the capacity of the (tile, depth)-sorted instance
     buffer; ``chunk`` the number of instances a blend block stages at once
-    (it also sets the early-exit granularity).  Only the ``"counting"``
-    binner is ported; ``rect_cap`` and ``strip`` are accepted for parity
-    with ``svgir_tpu`` and ignored (the port's blend kernels always write
-    image layout).
+    (it also sets the early-exit granularity).  ``binner`` is
+    ``"counting"`` (sort-free, B1/B2) or ``"sort"`` (``bin_instances`` +
+    ``pad_to_chunks``, the equivalence oracle).  ``strip > 0`` blends the
+    counting binner's runs into image layout (B3/B4); ``strip == 0`` and
+    the sort binner blend tile-major (B5/B6) and assemble the image after.
+    ``rect_cap`` is accepted for parity with ``svgir_tpu`` and ignored, as
+    it is there.
     """
 
     surface: bool = True

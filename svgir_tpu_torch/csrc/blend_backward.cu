@@ -1,6 +1,13 @@
 // B4 svgir_blend_backward replaces svgir_tpu/ops/blend_pallas_strip.py
-// blend_backward_strip (_bwd_kernel): per-instance gradient rows d_slab
-// [M, KR] of the forward blend (blend_forward.cu).
+// blend_backward_strip (_bwd_kernel), and B6 svgir_blend_backward_tiles
+// replaces svgir_tpu/ops/blend_pallas.py blend_backward (_bwd_kernel):
+// per-instance gradient rows d_slab [M, KR] of the forward blend
+// (blend_forward.cu).  One kernel serves both; only the layout of the
+// cotangents and of the forward's outputs differs (template parameter
+// TILES).  B4 reads image-layout cotangents g_img [>= CA+CV+1, Hp, Wp], the
+// final logT image and eff[t]; B6 reads tile-major g_out [T, CA+CV+3,
+// tile*tile] and the forward's meta block [T, 3, tile*tile] (final logT in
+// row 0, chunks processed in row 2, from which it takes eff).
 //
 // Each tile sweeps its processed chunks (eff[t], from the forward) from last
 // to first and walks the instances of a chunk backwards, rebuilding the
@@ -26,7 +33,7 @@
 
 #define SVGIR_BWD_IB 4  // instances per cross-warp reduction round
 
-template <int MAXA, int MAXV>
+template <int MAXA, int MAXV, bool TILES>
 __global__ void __launch_bounds__(1024)
 svgir_blend_bwd_kernel(const float* __restrict__ slab, const int* __restrict__ tile_start,
                        const int* __restrict__ eff, const float* __restrict__ g_img,
@@ -45,18 +52,23 @@ svgir_blend_bwd_kernel(const float* __restrict__ slab, const int* __restrict__ t
   const int gy = (t / grid_x) * tile + p / tile;
   const float px = (float)gx, py = (float)gy;
   const int start = tile_start[t];
-  const int ne = eff[t];
+  // TILES: logt_img is the meta block [T, 3, P] (logT, n_contrib, chunks)
+  const int ne = TILES ? (int)logt_img[(size_t)t * 3 * P + 2 * P] : eff[t];
   constexpr int NV = MAXV > 0 ? MAXV : 1;
 
-  const size_t o = (size_t)gy * img_w + gx;
+  // channel k of this pixel's cotangents: image layout [k, gy, gx];
+  // tile-major [t, k, p]
+  const size_t o = TILES ? (size_t)t * (ca + cv + 3) * P + p : (size_t)gy * img_w + gx;
+  const size_t stride = TILES ? (size_t)P : img_hw;
   float gp[MAXA];
   float gv[NV];
 #pragma unroll
-  for (int k = 0; k < MAXA; ++k) gp[k] = k < ca ? g_img[k * img_hw + o] : 0.f;
+  for (int k = 0; k < MAXA; ++k) gp[k] = k < ca ? g_img[k * stride + o] : 0.f;
 #pragma unroll
-  for (int k = 0; k < NV; ++k) gv[k] = (MAXV > 0 && k < cv) ? g_img[(ca + k) * img_hw + o] : 0.f;
-  float logT = logt_img[o];                 // logT after the instance being visited
-  float S = g_img[(ca + cv) * img_hw + o];  // d_loga of the instance being visited
+  for (int k = 0; k < NV; ++k) gv[k] = (MAXV > 0 && k < cv) ? g_img[(ca + k) * stride + o] : 0.f;
+  // logT after the instance being visited
+  float logT = TILES ? logt_img[(size_t)t * 3 * P + p] : logt_img[(size_t)gy * img_w + gx];
+  float S = g_img[(ca + cv) * stride + o];  // d_loga of the instance being visited
 
   for (int c = ne - 1; c >= 0; --c) {
     const int base = start + c * chunk;
@@ -173,7 +185,7 @@ svgir_blend_bwd_kernel(const float* __restrict__ slab, const int* __restrict__ t
   }
 }
 
-template <int MAXA, int MAXV>
+template <int MAXA, int MAXV, bool TILES>
 static int launch_backward(const float* slab, const int* tile_start, const int* eff,
                            const float* g_img, const float* logt_img, const float* g_wsum,
                            int kr, int ca, int cv, int grid_x, int grid_y, int tile, int chunk,
@@ -181,7 +193,7 @@ static int launch_backward(const float* slab, const int* tile_start, const int* 
   const int P = tile * tile;
   const size_t smem =
       ((size_t)chunk * kr + chunk + (size_t)(P / 32) * SVGIR_BWD_IB * kr) * sizeof(float);
-  auto kernel = svgir_blend_bwd_kernel<MAXA, MAXV>;
+  auto kernel = svgir_blend_bwd_kernel<MAXA, MAXV, TILES>;
   cudaError_t err = svgir_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int img_w = grid_x * tile;
@@ -193,18 +205,37 @@ static int launch_backward(const float* slab, const int* tile_start, const int* 
   return (int)cudaGetLastError();
 }
 
+template <bool TILES>
+static int dispatch_backward(const float* slab, const int* tile_start, const int* eff,
+                             const float* g_img, const float* logt_img, const float* g_wsum,
+                             int kr, int ca, int cv, int grid_x, int grid_y, int tile,
+                             int chunk, float* d_slab, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (chunk % SVGIR_BWD_IB != 0) return (int)cudaErrorInvalidValue;
+  if (cv == 0 && ca <= 16)
+    return launch_backward<16, 0, TILES>(slab, tile_start, eff, g_img, logt_img, g_wsum, kr,
+                                         ca, cv, grid_x, grid_y, tile, chunk, d_slab, s);
+  if (ca <= 32 && cv <= 16)
+    return launch_backward<32, 16, TILES>(slab, tile_start, eff, g_img, logt_img, g_wsum, kr,
+                                          ca, cv, grid_x, grid_y, tile, chunk, d_slab, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int svgir_blend_backward(const float* slab, const int* tile_start, const int* eff,
                                     const float* g_img, const float* logt_img,
                                     const float* g_wsum, int kr, int ca, int cv, int grid_x,
                                     int grid_y, int tile, int chunk, float* d_slab,
                                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (chunk % SVGIR_BWD_IB != 0) return (int)cudaErrorInvalidValue;
-  if (cv == 0 && ca <= 16)
-    return launch_backward<16, 0>(slab, tile_start, eff, g_img, logt_img, g_wsum, kr, ca, cv,
-                                  grid_x, grid_y, tile, chunk, d_slab, s);
-  if (ca <= 32 && cv <= 16)
-    return launch_backward<32, 16>(slab, tile_start, eff, g_img, logt_img, g_wsum, kr, ca,
-                                   cv, grid_x, grid_y, tile, chunk, d_slab, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_backward<false>(slab, tile_start, eff, g_img, logt_img, g_wsum, kr, ca, cv,
+                                  grid_x, grid_y, tile, chunk, d_slab, stream);
+}
+
+// B6: g_out [T, CA+CV+3, tile*tile] and the forward's meta [T, 3, tile*tile].
+extern "C" int svgir_blend_backward_tiles(const float* slab, const int* tile_start,
+                                          const float* g_out, const float* meta,
+                                          const float* g_wsum, int kr, int ca, int cv,
+                                          int grid_x, int grid_y, int tile, int chunk,
+                                          float* d_slab, void* stream) {
+  return dispatch_backward<true>(slab, tile_start, nullptr, g_out, meta, g_wsum, kr, ca, cv,
+                                 grid_x, grid_y, tile, chunk, d_slab, stream);
 }

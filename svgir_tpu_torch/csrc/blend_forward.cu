@@ -1,6 +1,9 @@
 // B3 svgir_blend_forward replaces svgir_tpu/ops/blend_pallas_strip.py
-// blend_forward_strip (_fwd_kernel): front-to-back alpha compositing of
-// each tile's depth-sorted instances in chunks of `chunk` rows.
+// blend_forward_strip (_fwd_kernel), and B5 svgir_blend_forward_tiles
+// replaces svgir_tpu/ops/blend_pallas.py blend_forward (_fwd_kernel):
+// front-to-back alpha compositing of each tile's depth-sorted instances in
+// chunks of `chunk` rows.  One kernel serves both; only the output layout
+// differs (template parameter TILES).
 //
 // Per pixel and instance (blend_pallas._chunk_math):
 //   power = -0.5 (cx dx^2 + cz dy^2) - cy dx dy,  alpha = min(0.99, o e^power)
@@ -11,10 +14,13 @@
 // tile (padding pixels included) has logT >= log(1e-4); that chunk-level
 // granularity fixes the final logT of saturated pixels.
 //
-// Outputs: image [CA+CV+2, gy*tile, gx*tile] (plain sums, vertex sums,
-// final logT, n_contrib), eff[t] = chunks processed, and optionally the
-// per-instance weight sums over the tile's pixels (rows of skipped chunks
-// are left as they are: the caller zero-fills wsum).
+// Outputs, B3 (image layout): image [CA+CV+2, gy*tile, gx*tile] (plain
+// sums, vertex sums, final logT, n_contrib) and eff[t] = chunks processed.
+// B5 (tile-major): out [T, CA+CV+3, tile*tile], the same rows plus the
+// chunks processed as a float, broadcast over the tile's pixels.  Both
+// optionally write the per-instance weight sums over the tile's pixels;
+// rows of skipped chunks are left as they are (the wrapper zero-fills
+// wsum, which gives B5's zeros for the chunks the early exit skipped).
 //
 // Bound: operations.  Every (pixel, instance) pair of a processed chunk
 // costs two exponentials, a log1p and ~2*(CA+4*CV)+20 flops, against a few
@@ -26,7 +32,7 @@
 // in shared memory: no float atomics, so the result is deterministic.
 #include "blend_common.cuh"
 
-template <int MAXA, int MAXV>
+template <int MAXA, int MAXV, bool TILES>
 __global__ void __launch_bounds__(1024)
 svgir_blend_fwd_kernel(const float* __restrict__ slab, const int* __restrict__ tile_start,
                        const int* __restrict__ tile_count, int kr, int ca, int cv,
@@ -103,25 +109,28 @@ svgir_blend_fwd_kernel(const float* __restrict__ slab, const int* __restrict__ t
     }
   }
 
-  const size_t o = (size_t)gy * img_w + gx;
+  // channel k of this pixel: image layout [k, gy, gx]; tile-major [t, k, p]
+  const size_t o = TILES ? (size_t)t * (ca + cv + 3) * P + p : (size_t)gy * img_w + gx;
+  const size_t stride = TILES ? (size_t)P : img_hw;
 #pragma unroll
   for (int k = 0; k < MAXA; ++k)
-    if (k < ca) img[k * img_hw + o] = acc[k];
+    if (k < ca) img[k * stride + o] = acc[k];
 #pragma unroll
   for (int k = 0; k < NV; ++k)
-    if (MAXV > 0 && k < cv) img[(ca + k) * img_hw + o] = accv[k];
-  img[(ca + cv) * img_hw + o] = logT;
-  img[(ca + cv + 1) * img_hw + o] = nc;
-  if (p == 0) eff[t] = c;
+    if (MAXV > 0 && k < cv) img[(ca + k) * stride + o] = accv[k];
+  img[(ca + cv) * stride + o] = logT;
+  img[(ca + cv + 1) * stride + o] = nc;
+  if (TILES) img[(ca + cv + 2) * stride + o] = (float)c;
+  if (eff != nullptr && p == 0) eff[t] = c;
 }
 
-template <int MAXA, int MAXV>
+template <int MAXA, int MAXV, bool TILES>
 static int launch_forward(const float* slab, const int* tile_start, const int* tile_count,
                           int kr, int ca, int cv, int grid_x, int grid_y, int tile, int chunk,
                           float* img, int* eff, float* wsum, cudaStream_t stream) {
   const int P = tile * tile;
   const size_t smem = ((size_t)chunk * kr + (wsum ? (size_t)(P / 32) * chunk : 0)) * sizeof(float);
-  auto kernel = svgir_blend_fwd_kernel<MAXA, MAXV>;
+  auto kernel = svgir_blend_fwd_kernel<MAXA, MAXV, TILES>;
   cudaError_t err = svgir_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int img_w = grid_x * tile;
@@ -133,18 +142,35 @@ static int launch_forward(const float* slab, const int* tile_start, const int* t
   return (int)cudaGetLastError();
 }
 
+template <bool TILES>
+static int dispatch_forward(const float* slab, const int* tile_start, const int* tile_count,
+                            int kr, int ca, int cv, int grid_x, int grid_y, int tile, int chunk,
+                            float* img, int* eff, float* wsum, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cv == 0 && ca <= 16)
+    return launch_forward<16, 0, TILES>(slab, tile_start, tile_count, kr, ca, cv, grid_x,
+                                        grid_y, tile, chunk, img, eff, wsum, s);
+  if (ca <= 32 && cv <= 16)
+    return launch_forward<32, 16, TILES>(slab, tile_start, tile_count, kr, ca, cv, grid_x,
+                                         grid_y, tile, chunk, img, eff, wsum, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // Channel bounds of the two compiled variants; the Python wrapper checks
 // them before the call (kernels/blend.py).
 extern "C" int svgir_blend_forward(const float* slab, const int* tile_start,
                                    const int* tile_count, int kr, int ca, int cv, int grid_x,
                                    int grid_y, int tile, int chunk, float* img, int* eff,
                                    float* wsum, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cv == 0 && ca <= 16)
-    return launch_forward<16, 0>(slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y,
-                                 tile, chunk, img, eff, wsum, s);
-  if (ca <= 32 && cv <= 16)
-    return launch_forward<32, 16>(slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y,
-                                  tile, chunk, img, eff, wsum, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_forward<false>(slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y,
+                                 tile, chunk, img, eff, wsum, stream);
+}
+
+// B5: out [T, CA+CV+3, tile*tile] (tile-major), no separate eff array.
+extern "C" int svgir_blend_forward_tiles(const float* slab, const int* tile_start,
+                                         const int* tile_count, int kr, int ca, int cv,
+                                         int grid_x, int grid_y, int tile, int chunk,
+                                         float* out, float* wsum, void* stream) {
+  return dispatch_forward<true>(slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y,
+                                tile, chunk, out, nullptr, wsum, stream);
 }

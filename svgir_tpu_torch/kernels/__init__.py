@@ -13,8 +13,9 @@ from collections import Counter
 LAUNCHES: Counter = Counter()
 
 KERNEL_NAMES = ("binning_counts", "binning_instances", "blend_forward",
-                "blend_backward", "env_lookup_forward", "env_lookup_backward",
-                "march")
+                "blend_backward", "blend_forward_tiles", "blend_backward_tiles",
+                "env_lookup_forward", "env_lookup_backward", "march",
+                "pad_cols", "slice_cols")
 
 
 def reset_launches() -> None:

@@ -1,6 +1,8 @@
-"""Wrappers of the blend kernels B3 (``svgir_blend_forward``,
-``csrc/blend_forward.cu``) and B4 (``svgir_blend_backward``,
-``csrc/blend_backward.cu``).
+"""Wrappers of the blend kernels B3 (``svgir_blend_forward``) and B5
+(``svgir_blend_forward_tiles``), both in ``csrc/blend_forward.cu``, and B4
+(``svgir_blend_backward``) and B6 (``svgir_blend_backward_tiles``), both in
+``csrc/blend_backward.cu``.  B3/B4 take and give image-layout channels, B5/B6
+tile-major ones ``[T, CA+CV+3, tile**2]``.
 
 The wrappers check the slab layout, the compiled channel bounds and the
 tile size.  The C entries refuse, as an invalid value, what depends on their
@@ -34,6 +36,24 @@ def _backward_fn():
     #  grid_y, tile, chunk, d_slab, stream)
     f = library("blend_backward").svgir_blend_backward
     f.argtypes = [_P] * 6 + [_I] * 7 + [_P] * 2
+    f.restype = _I
+    return f
+
+
+def _forward_tiles_fn():
+    # (slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y, tile,
+    #  chunk, out, wsum, stream)
+    f = library("blend_forward").svgir_blend_forward_tiles
+    f.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 3
+    f.restype = _I
+    return f
+
+
+def _backward_tiles_fn():
+    # (slab, tile_start, g_out, meta, g_wsum, kr, ca, cv, grid_x, grid_y,
+    #  tile, chunk, d_slab, stream)
+    f = library("blend_backward").svgir_blend_backward_tiles
+    f.argtypes = [_P] * 5 + [_I] * 7 + [_P] * 2
     f.restype = _I
     return f
 
@@ -107,4 +127,60 @@ def blend_backward(slab, tile_start, eff, g_img, logt_img, g_wsum, *,
         grid_y, tile, chunk, d_slab.data_ptr(), stream(slab))
     check(rc, "svgir_blend_backward")
     LAUNCHES["blend_backward"] += 1
+    return d_slab
+
+
+def blend_forward_tiles(slab, tile_start, tile_count, *, ca: int, cv: int,
+                        grid_x: int, grid_y: int, tile: int, chunk: int,
+                        emit_wsum: bool = True):
+    """slab [M, 12+ca+4cv] f32, tile_start/tile_count [T] int32 ->
+    (out [T, ca+cv+3, tile**2]: plain sums, vertex sums, final logT,
+    n_contrib, chunks processed; wsum [M] or None)."""
+    m, kr = slab.shape
+    _check_layout(slab, ca, cv, tile, chunk)
+    num_tiles = grid_x * grid_y
+    require("slab", slab, torch.float32, (m, kr))
+    require("tile_start", tile_start, torch.int32, (num_tiles,))
+    require("tile_count", tile_count, torch.int32, (num_tiles,))
+    dev = slab.device
+    out = torch.empty(num_tiles, ca + cv + 3, tile * tile,
+                      dtype=torch.float32, device=dev)
+    # rows of skipped chunks and outside every tile's range stay zero
+    wsum = torch.zeros(m, dtype=torch.float32, device=dev) if emit_wsum \
+        else None
+    rc = _forward_tiles_fn()(
+        slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), kr, ca,
+        cv, grid_x, grid_y, tile, chunk, out.data_ptr(),
+        wsum.data_ptr() if emit_wsum else None, stream(slab))
+    check(rc, "svgir_blend_forward_tiles")
+    LAUNCHES["blend_forward_tiles"] += 1
+    return out, wsum
+
+
+def blend_backward_tiles(slab, tile_start, g_out, meta, g_wsum, *, ca: int,
+                         cv: int, grid_x: int, grid_y: int, tile: int,
+                         chunk: int):
+    """Per-instance gradient rows d_slab [M, 12+ca+4cv] f32 from tile-major
+    cotangents ``g_out`` [T, ca+cv+3, tile**2] (plain, vertex and logT rows
+    are read) and the forward's ``meta`` [T, 3, tile**2] (final logT,
+    n_contrib, chunks processed: the chunks to sweep); ``g_wsum`` [M] or
+    None."""
+    m, kr = slab.shape
+    _check_layout(slab, ca, cv, tile, chunk)
+    num_tiles, pix = grid_x * grid_y, tile * tile
+    require("slab", slab, torch.float32, (m, kr))
+    require("tile_start", tile_start, torch.int32, (num_tiles,))
+    require("g_out", g_out, torch.float32, (num_tiles, ca + cv + 3, pix))
+    require("meta", meta, torch.float32, (num_tiles, 3, pix))
+    if g_wsum is not None:
+        require("g_wsum", g_wsum, torch.float32, (m,))
+    # rows of skipped chunks and of padding stay zero
+    d_slab = torch.zeros(m, kr, dtype=torch.float32, device=slab.device)
+    rc = _backward_tiles_fn()(
+        slab.data_ptr(), tile_start.data_ptr(), g_out.data_ptr(),
+        meta.data_ptr(), g_wsum.data_ptr() if g_wsum is not None else None,
+        kr, ca, cv, grid_x, grid_y, tile, chunk, d_slab.data_ptr(),
+        stream(slab))
+    check(rc, "svgir_blend_backward_tiles")
+    LAUNCHES["blend_backward_tiles"] += 1
     return d_slab

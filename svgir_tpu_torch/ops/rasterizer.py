@@ -1,11 +1,26 @@
-"""Public rasterizer: preprocess -> counting binner -> blend -> assembly.
+"""Public rasterizer: preprocess -> binning -> blend -> assembly.
 
-Mirrors ``svgir_tpu.ops.rasterizer.rasterize`` on its strip path (the
-counting binner with image-layout blend I/O).  ``_BlendGather`` is the
-custom-gradient boundary: its forward gathers the per-Gaussian slab rows of
-each instance and runs the blend (B3); its backward runs B4 and scatter-adds
-the per-instance rows into per-Gaussian rows with ``index_add_``.
-Everything else is plain torch differentiated by autograd.
+Mirrors ``svgir_tpu.ops.rasterizer.rasterize`` on all three of its blend
+paths, chosen as it chooses them (``cfg.binner``, ``cfg.strip``):
+
+- counting binner, ``strip > 0`` (the default): ``_BlendGather`` with the
+  image-layout blend B3/B4 (``ops/blend_pallas_strip``);
+- counting binner, ``strip == 0``: ``_BlendGatherTiles`` with the tile-major
+  blend B5/B6 (``ops/blend_pallas``) and the tile -> image assembly
+  transpose;
+- sort binner (``binner="sort"``: ``bin_instances`` + ``pad_to_chunks``,
+  always tile-major): ``_BlendGatherTiles`` as well.  The reference's
+  ``_make_blend`` gathers the slab outside and masks it, its weight sums
+  and its gradient rows by ``inst_valid``; here the sort binner's padding
+  slots carry gid -1 as the counting binner's do, so the zero row ``n``
+  does the masking.
+
+The two gather Functions are the custom-gradient boundary around the
+per-Gaussian slab gather and the blend: their backward runs the blend's
+backward kernel and scatter-adds the per-instance rows into per-Gaussian
+rows with ``index_add_``.  Everything else is plain torch differentiated by
+autograd.  (The port's B3/B4 take tile ranges in tile order, so the strip
+width itself changes nothing past choosing the path.)
 """
 
 from __future__ import annotations
@@ -15,8 +30,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from svgir_tpu_torch.config import RasterConfig
-from svgir_tpu_torch.ops import blend_pallas_strip, common
-from svgir_tpu_torch.ops.binning import bin_instances_counting
+from svgir_tpu_torch.ops import blend_pallas, blend_pallas_strip, common
+from svgir_tpu_torch.ops.binning import (bin_instances,
+                                         bin_instances_counting,
+                                         pad_to_chunks)
 from svgir_tpu_torch.ops.preprocess import Preprocessed, preprocess
 
 
@@ -34,8 +51,36 @@ class RenderBuffers(NamedTuple):
     overflow: torch.Tensor   # [] bool, the binner hit max_instances
 
 
+def _gather(slab_rows, gid):
+    """Instance slab [M, KR]: padding slots (gid -1) take the zero row n."""
+    n = slab_rows.shape[0] - 1
+    idx = torch.where(gid >= 0, gid, n).long()
+    return idx, slab_rows.index_select(0, idx)
+
+
+def _gaussian_weights(wsum, idx, n):
+    weights = wsum.new_zeros(n + 1)
+    weights.index_add_(0, idx, wsum)
+    return weights[:n]
+
+
+def _instance_g_wsum(g_weights, idx):
+    """Each instance's weight-sum cotangent: its Gaussian's (0 for
+    padding)."""
+    g_ext = torch.cat([g_weights, g_weights.new_zeros(1)])
+    return g_ext.index_select(0, idx).contiguous()
+
+
+def _gaussian_rows(d_inst, idx, n):
+    """Per-Gaussian rows [n+1, KR]; padding slots land in row n."""
+    d_rows = d_inst.new_zeros(n + 1, d_inst.shape[1])
+    d_rows.index_add_(0, idx, d_inst)
+    return d_rows
+
+
 class _BlendGather(torch.autograd.Function):
-    """(slab_rows [n+1, KR], gid [M]) -> (img, per-Gaussian weights [n]).
+    """(slab_rows [n+1, KR], gid [M]) -> (img, per-Gaussian weights [n]),
+    through the image-layout blend B3/B4.
 
     ``slab_rows`` carries one extra all-zero row ``n``: padding slots
     (gid -1) gather it, and their gradients scatter back into it, so no
@@ -48,32 +93,55 @@ class _BlendGather(torch.autograd.Function):
     def forward(ctx, slab_rows, gid, tile_start, tile_count, kw, wgrad,
                 need_weights):
         n = slab_rows.shape[0] - 1
-        idx = torch.where(gid >= 0, gid, n).long()
-        slab = slab_rows.index_select(0, idx)
+        idx, slab = _gather(slab_rows, gid)
         img, eff, wsum = blend_pallas_strip.blend_forward(
             slab, tile_start, tile_count, emit_wsum=need_weights, **kw)
-        weights = slab_rows.new_zeros(n + 1)
-        if need_weights:
-            weights.index_add_(0, idx, wsum)
+        weights = _gaussian_weights(wsum, idx, n) if need_weights \
+            else slab_rows.new_zeros(n)
         ctx.save_for_backward(slab, idx, tile_start, img, eff)
         ctx.kw, ctx.wgrad, ctx.n = kw, wgrad, n
-        return img, weights[:n]
+        return img, weights
 
     @staticmethod
     def backward(ctx, g_img, g_weights):
         slab, idx, tile_start, img, eff = ctx.saved_tensors
-        kw, n = ctx.kw, ctx.n
-        ca, cv = kw["ca"], kw["cv"]
-        g_wsum = None
-        if ctx.wgrad:
-            g_ext = torch.cat([g_weights, g_weights.new_zeros(1)])
-            g_wsum = g_ext.index_select(0, idx).contiguous()
+        kw = ctx.kw
+        g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
         d_inst = blend_pallas_strip.blend_backward(
-            slab, tile_start, eff, g_img.contiguous(), img[ca + cv], g_wsum,
-            **kw)
-        d_rows = d_inst.new_zeros(n + 1, d_inst.shape[1])
-        d_rows.index_add_(0, idx, d_inst)
-        return d_rows, None, None, None, None, None, None
+            slab, tile_start, eff, g_img.contiguous(),
+            img[kw["ca"] + kw["cv"]], g_wsum, **kw)
+        return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None, None,
+                None, None)
+
+
+class _BlendGatherTiles(torch.autograd.Function):
+    """The tile-major twin of ``_BlendGather`` (the reference's
+    ``_make_blend_gather``): (slab_rows [n+1, KR], gid [M]) -> (out [T,
+    CA+CV+3, tile**2], per-Gaussian weights [n]) through B5/B6."""
+
+    @staticmethod
+    def forward(ctx, slab_rows, gid, tile_start, tile_count, kw, wgrad,
+                need_weights):
+        n = slab_rows.shape[0] - 1
+        idx, slab = _gather(slab_rows, gid)
+        out, wsum = blend_pallas.blend_forward(
+            slab, tile_start, tile_count, emit_wsum=need_weights, **kw)
+        weights = _gaussian_weights(wsum, idx, n) if need_weights \
+            else slab_rows.new_zeros(n)
+        ctx.save_for_backward(slab, idx, tile_start, out)
+        ctx.kw, ctx.wgrad, ctx.n = kw, wgrad, n
+        return out, weights
+
+    @staticmethod
+    def backward(ctx, g_out, g_weights):
+        slab, idx, tile_start, out = ctx.saved_tensors
+        kw = ctx.kw
+        g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
+        meta = out[:, kw["ca"] + kw["cv"]:].contiguous()
+        d_inst = blend_pallas.blend_backward(
+            slab, tile_start, g_out.contiguous(), meta, g_wsum, **kw)
+        return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None, None,
+                None, None)
 
 
 def _pack_slab(prep: Preprocessed, opacity: torch.Tensor,
@@ -144,9 +212,6 @@ def rasterize(
     ``mean2d_offset`` ([N, 2] zeros) lets callers take gradients with
     respect to screen-space positions (densification statistics).
     """
-    if cfg.binner != "counting":
-        raise NotImplementedError("svgir_tpu_torch ports only the counting "
-                                  "binner")
     width, height = camera.width, camera.height
     tile = cfg.tile
     grid_x = -(-width // tile)
@@ -168,10 +233,15 @@ def rasterize(
     if mean2d_offset is not None:
         prep = prep._replace(mean2d=prep.mean2d + mean2d_offset)
 
-    padded = bin_instances_counting(prep, width=width, height=height, cfg=cfg)
+    if cfg.binner == "counting":
+        padded = bin_instances_counting(prep, width=width, height=height,
+                                        cfg=cfg)
+    else:
+        binned = bin_instances(prep, width=width, height=height, cfg=cfg)
+        padded = pad_to_chunks(binned, chunk=cfg.chunk,
+                               max_instances=cfg.max_instances)
 
     slab_g, ca, cv = _pack_slab(prep, opacity, features, vfeatures, cfg)
-    slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
     kw = dict(ca=ca, cv=cv, grid_x=grid_x, grid_y=grid_y, tile=tile,
               chunk=cfg.chunk)
     # on overflow the binner's runs reach past the instance buffer; cut
@@ -181,9 +251,16 @@ def rasterize(
     tile_start = torch.clamp(padded.tile_start, max=m)
     tile_count = torch.minimum(padded.tile_count,
                                (m - tile_start) // cfg.chunk * cfg.chunk)
-    img_p, weights = _BlendGather.apply(
-        slab_ext, padded.gaussian_id, tile_start, tile_count, kw,
-        weights_grad, need_weights)
+    strip = cfg.strip if padded.order is not None else 0
+    # one extra all-zero row: padding slots (gid -1) gather it and their
+    # gradients scatter back into it
+    slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
+    blend = _BlendGather if strip else _BlendGatherTiles
+    out, weights = blend.apply(slab_ext, padded.gaussian_id, tile_start,
+                               tile_count, kw, weights_grad, need_weights)
+    # strip > 0 blends into image layout; else assemble the tile blocks
+    img_p = out if strip else blend_pallas.to_image(out, grid_x, grid_y,
+                                                    tile)
     img = img_p[:, :height, :width]
 
     s = 0 if features is None else features.shape[1]

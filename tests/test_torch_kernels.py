@@ -12,7 +12,8 @@ from svgir_tpu_torch import kernels
 from svgir_tpu_torch.kernels import binning as KB
 from svgir_tpu_torch.kernels import blend as KBL
 from svgir_tpu_torch.kernels import build
-from svgir_tpu_torch.ops import binning_pallas, blend_pallas_strip
+from svgir_tpu_torch.kernels import cols as KC
+from svgir_tpu_torch.ops import binning_pallas, blend_pallas, blend_pallas_strip
 
 
 def _rects(ns=256):
@@ -54,6 +55,33 @@ def test_blend_wrappers_refuse_bad_inputs(kw, match):
         KBL.blend_backward(slab, t, t, img, img[0], None, **args)
 
 
+@pytest.mark.parametrize("kw,match", [
+    (dict(ca=14, cv=0, tile=32, kr=26), "CUDA"),
+    (dict(ca=14, cv=0, tile=32, kr=27), "columns"),
+    (dict(ca=40, cv=1, tile=32, kr=56), "channel bounds"),
+    (dict(ca=14, cv=0, tile=12, kr=26), "multiple of 32"),
+])
+def test_tile_blend_wrappers_refuse_bad_inputs(kw, match):
+    slab = torch.zeros(128, kw["kr"])
+    t = torch.zeros(4, dtype=torch.int32)
+    args = dict(ca=kw["ca"], cv=kw["cv"], grid_x=2, grid_y=2, tile=kw["tile"],
+                chunk=128)
+    with pytest.raises(ValueError, match=match):
+        KBL.blend_forward_tiles(slab, t, t, **args)
+    g_out = torch.zeros(4, kw["ca"] + kw["cv"] + 3, kw["tile"] ** 2)
+    with pytest.raises(ValueError, match=match):
+        KBL.blend_backward_tiles(slab, t, g_out, g_out[:, :3], None,
+                                 **args)
+
+
+@pytest.mark.parametrize("fn", [KC.pad_cols, KC.slice_cols])
+def test_cols_wrappers_refuse_cpu_tensors(fn):
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.zeros(1024, 24), 64 if fn is KC.pad_cols else 16)
+    with pytest.raises(ValueError, match="2-D"):
+        fn(torch.zeros(1024), 16)
+
+
 def test_cpu_dispatch_runs_plain_versions_without_launches():
     kernels.reset_launches()
     ts, pc, total, carry = binning_pallas.compute_counts(
@@ -71,6 +99,28 @@ def test_cpu_dispatch_runs_plain_versions_without_launches():
         slab, t0, tc, ca=14, cv=0, grid_x=2, grid_y=2, tile=16, chunk=128)
     assert eff.tolist() == [1, 0, 0, 0]
     assert img.shape == (16, 32, 32) and float(wsum.sum()) > 0
+    assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
+
+
+def test_cpu_dispatch_of_tile_major_blend_and_cols_launches_nothing():
+    """B5/B6/B9 on CPU tensors run their plain versions; the tile-major
+    forward carries the chunks processed in its last row."""
+    kernels.reset_launches()
+    slab = torch.zeros(128, 26)
+    slab[:, 5] = 0.5                       # opacity; everything at (0, 0)
+    slab[:, 2] = slab[:, 4] = 0.01
+    t0 = torch.tensor([0, 128, 128, 128], dtype=torch.int32)
+    tc = torch.tensor([128, 0, 0, 0], dtype=torch.int32)
+    kw = dict(ca=14, cv=0, grid_x=2, grid_y=2, tile=16, chunk=128)
+    out, wsum = blend_pallas.blend_forward(slab, t0, tc, **kw)
+    assert out.shape == (4, 17, 256) and float(wsum.sum()) > 0
+    assert out[:, 16, 0].tolist() == [1.0, 0.0, 0.0, 0.0]
+    d = blend_pallas.blend_backward(slab, t0, torch.ones_like(out),
+                                    out[:, 14:].contiguous(), None, **kw)
+    assert d.shape == (128, 26) and float(d[:, 5].abs().sum()) > 0
+    x = torch.rand(1024, 26)
+    assert torch.equal(blend_pallas.slice_cols(
+        blend_pallas.pad_cols(x, 128), 26), x)
     assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
 
 
@@ -109,8 +159,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert sorted(build._targets()) == ["binning", "blend_backward",
-                                        "blend_forward", "env_lookup",
-                                        "march"]
+                                        "blend_forward", "cols",
+                                        "env_lookup", "march"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 

@@ -1,5 +1,6 @@
 """One stage-1 train step of svgir_tpu_torch against svgir_tpu's, on a
-tests/scenes.py scene carried across by ``params_from_jax``; plus model
+tests/scenes.py scene carried across by ``params_from_jax``, with the
+default strip path and (loss, image, gradients) with ``strip=0``; plus model
 initialization, the step loop's guard on densification, and the package's
 isolation from JAX.
 
@@ -63,29 +64,13 @@ def _inputs():
     return pts, cols, img
 
 
-@pytest.fixture(scope="module")
-def stepped():
+def _setup(strip):
     pts, cols, img = _inputs()
     jstate = JG.init_from_points(jnp.asarray(pts), jnp.asarray(cols),
                                  normals=jnp.asarray(pts), capacity=256,
                                  rotation_init="normal")
     jcam = dataclasses.replace(default_camera(W, H), image=img,
                                image_mask=np.ones((1, H, W), np.float32))
-    jopt, jcfg = JOpt(), JCfg(max_instances=1 << 14)
-    bg = jnp.zeros(3)
-
-    def jloss(p):
-        r = j_render_stage1(jcam, p, bg, opt=jopt, iteration=ITER,
-                            is_training=True, alive=jstate["alive"], cfg=jcfg)
-        return r["loss"], r["render"]
-
-    (jl, jimg), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        jstate["params"])
-    jstep = jtrainer.make_train_step(jopt, jcfg, bg,
-                                     lrs=joptim.group_lrs(jopt, 1.0, False))
-    jnew, jost, jtb = jstep(jstate, joptim.adam_init(jstate["params"]), jcam,
-                            jnp.float32(ITER), jnp.float32(XYZ_LR))
-
     np_params = jax.device_get(jstate["params"])
     params = TG.params_from_jax(np_params, device="cpu")
     tstate = {"params": params,
@@ -94,26 +79,57 @@ def stepped():
     tcam = t_look_at(eye=[0.3, 0.2, -3.0], target=[0, 0, 0], up=[0, -1, 0],
                      fovx=np.pi / 3, fovy=np.pi / 3, width=W, height=H,
                      image=img, device="cpu")
-    topt, tcfg = TOpt(), TCfg(max_instances=1 << 14)
-    tbg = torch.zeros(3)
+    return dict(jstate=jstate, jcam=jcam, jopt=JOpt(),
+                jcfg=JCfg(max_instances=1 << 14, strip=strip), tstate=tstate,
+                tcam=tcam, topt=TOpt(),
+                tcfg=TCfg(max_instances=1 << 14, strip=strip))
 
-    def port_grads(dtype):
-        cam = dataclasses.replace(tcam, **{
-            f: getattr(tcam, f).to(dtype) for f in
-            ("world_view", "full_proj", "camera_center", "prcppoint", "image",
-             "image_mask")})
-        p = {k: v.to(dtype).requires_grad_(True) for k, v in params.items()}
-        r = t_render_stage1(cam, p, tbg.to(dtype), opt=topt, iteration=ITER,
-                            is_training=True, alive=tstate["alive"],
-                            cfg=tcfg)
-        g = torch.autograd.grad(r["loss"], [p[k] for k in PARAMS],
-                                allow_unused=True)
-        return r, {k: torch.zeros_like(p[k]) if v is None else v
-                   for k, v in zip(PARAMS, g)}
 
-    r, tg = port_grads(torch.float32)
-    _, tg64 = port_grads(torch.float64)
-    tstep = ttrainer.make_train_step(topt, tcfg, tbg,
+def _jax_loss_grads(c):
+    jstate, bg = c["jstate"], jnp.zeros(3)
+
+    def jloss(p):
+        r = j_render_stage1(c["jcam"], p, bg, opt=c["jopt"], iteration=ITER,
+                            is_training=True, alive=jstate["alive"],
+                            cfg=c["jcfg"])
+        return r["loss"], r["render"]
+
+    return jax.jit(jax.value_and_grad(jloss, has_aux=True))(jstate["params"])
+
+
+def _port_grads(c, dtype):
+    tcam = c["tcam"]
+    cam = dataclasses.replace(tcam, **{
+        f: getattr(tcam, f).to(dtype) for f in
+        ("world_view", "full_proj", "camera_center", "prcppoint", "image",
+         "image_mask")})
+    p = {k: v.to(dtype).requires_grad_(True)
+         for k, v in c["tstate"]["params"].items()}
+    r = t_render_stage1(cam, p, torch.zeros(3, dtype=dtype), opt=c["topt"],
+                        iteration=ITER, is_training=True,
+                        alive=c["tstate"]["alive"], cfg=c["tcfg"])
+    g = torch.autograd.grad(r["loss"], [p[k] for k in PARAMS],
+                            allow_unused=True)
+    return r, {k: torch.zeros_like(p[k]) if v is None else v
+               for k, v in zip(PARAMS, g)}
+
+
+@pytest.fixture(scope="module")
+def stepped():
+    c = _setup(strip=8)
+    jstate, jcam, jopt, jcfg = c["jstate"], c["jcam"], c["jopt"], c["jcfg"]
+    bg = jnp.zeros(3)
+    (jl, jimg), jg = _jax_loss_grads(c)
+    jstep = jtrainer.make_train_step(jopt, jcfg, bg,
+                                     lrs=joptim.group_lrs(jopt, 1.0, False))
+    jnew, jost, jtb = jstep(jstate, joptim.adam_init(jstate["params"]), jcam,
+                            jnp.float32(ITER), jnp.float32(XYZ_LR))
+
+    tstate, tcam, topt, tcfg = c["tstate"], c["tcam"], c["topt"], c["tcfg"]
+    params = tstate["params"]
+    r, tg = _port_grads(c, torch.float32)
+    _, tg64 = _port_grads(c, torch.float64)
+    tstep = ttrainer.make_train_step(topt, tcfg, torch.zeros(3),
                                      lrs=toptim.group_lrs(topt, 1.0),
                                      device="cpu")
     tnew, tost, ttb = tstep(tstate, toptim.adam_init(params), tcam, ITER,
@@ -124,6 +140,20 @@ def stepped():
                tb=jax.device_get(jtb)),
         t=dict(loss=float(r["loss"].detach()), img=r["render"].detach().numpy(),
                grads=tg, grads64=tg64, new=tnew, ost=tost, tb=ttb))
+
+
+@pytest.fixture(scope="module")
+def stepped_strip0():
+    """The same step's loss, image and gradients with ``strip=0`` in both
+    packages: the tile-major blend (B5/B6 in the port) and its assembly
+    transpose."""
+    c = _setup(strip=0)
+    (jl, jimg), jg = _jax_loss_grads(c)
+    r, tg = _port_grads(c, torch.float32)
+    return dict(j=dict(loss=float(jl), img=np.asarray(jimg),
+                       grads=jax.device_get(jg)),
+                t=dict(loss=float(r["loss"].detach()),
+                       img=r["render"].detach().numpy(), grads=tg))
 
 
 def test_loss_and_image_match(stepped):
@@ -147,6 +177,16 @@ def _rel(a, b, tol):
 def test_param_gradients_match(stepped, name):
     j, t = stepped["j"], stepped["t"]
     _rel(t["grads"][name].numpy(), j["grads"][name], 2.5e-3)
+
+
+@pytest.mark.parametrize("name", ("loss_and_image",) + PARAMS)
+def test_strip0_step_matches(stepped_strip0, name):
+    j, t = stepped_strip0["j"], stepped_strip0["t"]
+    if name == "loss_and_image":
+        assert t["loss"] == pytest.approx(j["loss"], abs=1e-5)
+        np.testing.assert_allclose(t["img"], j["img"], atol=1e-5)
+    else:
+        _rel(t["grads"][name].numpy(), j["grads"][name], 2.5e-3)
 
 
 @pytest.mark.parametrize("name", PARAMS)
