@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # all phases, from the repository root
     python3 chip_smoke.py --profile DIR   # also write torch.profiler
-                                          # tables of a stage-1, a stage-2
-                                          # and an S = 64 step to DIR
+                                          # tables of stage-1, stage-2 and
+                                          # S = 64 steps and a bake to DIR
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build    compile csrc/*.cu with nvcc (in parallel) and load them;
@@ -24,13 +24,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               step of the bench scene), plus a vertex-channel case (CV > 0,
               multi-chunk tiles, weight-sum cotangent present) on a smaller
               scene.  B1/B2 must be equal integer for integer; B3/B4 within
-              the tolerances below.
+              the tolerances below.  B1 also on the bench scene at tile 16
+              (2,500 tiles) and on the synthetic rects of the CPU tests
+              (tests/torch_kernel_inputs.py: full-grid, empty, inverted,
+              edge-ending and out-of-grid rects, one chunk, tile 16 on a
+              non-square grid).
   5. parity   the small scene rendered forward and backward on the card
               (kernels) and on the CPU (plain versions): image and
               gradients agree.
   6. timing   median times of the render and the train step (at the snug
               and at the default cap), of each kernel, its plain version
-              and, for B1, a bincount + cumsum yardstick.
+              and, for B1, a bincount + cumsums yardstick of its whole
+              function (counts and carry; the counts-only one beside it).
+              Every kernel row, here and in 11, 16 and 23, has its per-call
+              ms (CUDA events around each Python call: host time
+              included) and its device_ms (torch.profiler's durations of
+              the device operations over 20 back-to-back calls), and so
+              has its library yardstick.
   Stage 2 (the deferred-PBR mode, bench_stage2.py's configuration: the
   bench scene upgrade_to_pbr'd, a synthetic radiance bake with S = 24
   incident samples per surfel made from a seeded generator, a 32x64 env):
@@ -42,12 +52,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  least once per step.
   9. s2 kernels  B7 forward/backward and B3/B4 at CA 13 / CV 13 against
                  their plain versions on the inputs of one stage-2 step,
-                 B3 at CA 16 / CV 16 on the eval render's inputs.
+                 B3 at CA 16 / CV 16 on the eval render's inputs; B7's
+                 forward also on both of the eval render's lookups and on
+                 the edge cases of the CPU tests (envs 16x32 and 32x64, M
+                 37, 1,027 and 20,003, and each one shorter and not
+                 16-byte aligned).
   10. s2 parity  a small stage-2 scene rendered and stepped on the card and
                  on the CPU: images, loss and gradients agree.
   11. s2 timing  stage-2 train step and eval render medians; B7 with its
-                 plain version, bound and grid_sample yardstick; B3/B4 at
-                 stage-2 width.
+                 plain version, bound and grid_sample yardstick (the
+                 forward also on each eval lookup); B3/B4 at stage-2
+                 width.
   The radiance bake that starts stage 2 (the bench scene upgraded to PBR,
   S = 64 samples per surfel as the recipe's --sample_num 64, k_hits 16, a
   16x32 env: train_stage2's defaults):
@@ -104,8 +119,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  step and eval render at both; B5/B6/B9 per launch with
                  their plain versions, bounds and (B9) F.pad / slice copy.
 
-The second-to-last line of output is the kernels JSON; before it the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+The output ends with three lines: the kernels JSON, the nvidia-smi line
+(the card's name and power limit), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -160,6 +175,19 @@ def log(*a):
     print(*a, flush=True)
 
 
+def kernel_inputs():
+    """``tests/torch_kernel_inputs.py`` (numpy only), loaded by its path: a
+    ``tests`` package installed elsewhere may shadow the repository's."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_kernel_inputs.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_inputs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -184,6 +212,83 @@ def cuda_ms(fn, reps=10, warmup=2) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20):
+    """Device time of one fn() in ms, from the card's own clock: the
+    durations torch.profiler records for the device operations (kernels,
+    memsets, copies) of ``reps`` back-to-back calls, without the host time
+    of each call (argument checks, allocation, launch).  Returns (ms,
+    device operations per call, share of those launches the profiler
+    recorded).
+
+    On the H100 machine the profiler drops some device records, more as a
+    run goes on (up to 19 of 20 launches of one kernel late in a run), so
+    each operation is counted by name: its mean duration over the records
+    it has, times its launches per call (its records over ``reps``,
+    rounded up: right while fewer than ``reps`` of its records are lost).
+    The window is padded on both sides so that records near its edges are
+    kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    return device_by_name(prof, reps)
+
+
+def device_by_name(prof, reps):
+    """(ms, operations, share recorded) per call of a profiled window of
+    ``reps`` calls, each device operation counted by name as
+    ``device_ms`` says."""
+    import math
+
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            n_us = by_name.setdefault(e.name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
+    if not by_name:
+        raise AssertionError("torch.profiler recorded no device operation")
+    per_call = {k: math.ceil(n / reps) for k, (n, _) in by_name.items()}
+    ms = sum(us / n * per_call[k] for k, (n, us) in by_name.items()) / 1e3
+    ops = sum(per_call.values())
+    return ms, ops, sum(n for n, _ in by_name.values()) / (ops * reps)
+
+
+def timings(kfn, pfn, lfn=None, *, reps=20, plain_reps=3):
+    """The timing keys of a kernels-JSON entry: the wrapper's per-call
+    ``ms`` (events around each call) and its ``device_ms``, the plain
+    version's per-call ms, and the library call's per-call and device ms
+    (None without one)."""
+    dms, nk, rec = device_ms(kfn, reps=reps)
+    out = {"ms": cuda_ms(kfn, reps=reps), "device_ms": dms,
+           "device_ops": nk, "profiler_recorded": rec,
+           "plain_ms": cuda_ms(pfn, reps=plain_reps, warmup=1),
+           "library_ms": None, "library_device_ms": None}
+    if lfn is not None:
+        out["library_ms"] = cuda_ms(lfn, reps=reps)
+        out["library_device_ms"] = device_ms(lfn, reps=reps)[0]
+    return out
+
+
+def fmt_times(t, lib_name=""):
+    return (f"{t['ms']:.4f} ms per call, {t['device_ms']:.4f} ms on the "
+            f"device ({t['device_ops']} device ops per call, "
+            f"{t['profiler_recorded']:.2f} of them recorded; plain "
+            f"{t['plain_ms']:.3f} ms"
+            + (f"; {lib_name} {t['library_ms']:.4f} ms per call, "
+               f"{t['library_device_ms']:.4f} ms on the device"
+               if t["library_ms"] is not None else "") + ")")
 
 
 def host_ms(fn, reps=10, warmup=2) -> float:
@@ -273,6 +378,7 @@ class Capture:
             (env_lookup_pallas, "env_lookup_backward",
              "env_lookup_backward")]
         self.calls = {}
+        self.every = {}         # key -> the arguments of every call
 
     def __enter__(self):
         self.saved = []
@@ -282,6 +388,7 @@ class Capture:
 
             def rec(*a, _fn=fn, _key=key, **kw):
                 self.calls.setdefault(_key, (a, kw))
+                self.every.setdefault(_key, []).append((a, kw))
                 return _fn(*a, **kw)
             setattr(mod, name, rec)
         return self
@@ -323,6 +430,26 @@ def max_err_rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
 
 
+def compare_counts(a, kw, label):
+    """B1 kernel vs plain on the rects ``a``: counts and carry equal
+    integer for integer."""
+    import torch
+
+    from svgir_tpu_torch.kernels import binning as K
+    from svgir_tpu_torch.ops import binning_pallas as P
+
+    kk = dict(grid_x=kw["grid_x"], grid_y=kw["grid_y"],
+              gauss_chunk=kw.get("gauss_chunk", 256))
+    kc, kcar = K.counts(*a, **kk)
+    pc, pcar = P.counts_plain(*a, **kk)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, pc) and torch.equal(kcar, pcar)):
+        bad = int((kc != pc).sum() + (kcar != pcar).sum())
+        raise AssertionError(f"B1 [{label}] counts kernel disagrees with its "
+                             f"plain version at {bad} entries")
+    return f"{label}: {kcar.shape[0]} chunks x {kc.numel()} tiles"
+
+
 def compare_binning(calls):
     """B1, B2 kernel vs plain on the captured inputs: integer equality."""
     import torch
@@ -330,15 +457,7 @@ def compare_binning(calls):
     from svgir_tpu_torch.kernels import binning as K
     from svgir_tpu_torch.ops import binning_pallas as P
 
-    a, kw = calls["compute_counts"]
-    kk = dict(grid_x=kw["grid_x"], grid_y=kw["grid_y"],
-              gauss_chunk=kw.get("gauss_chunk", 256))
-    kc, kcar = K.counts(*a, **kk)
-    pc, pcar = P.counts_plain(*a, **kk)
-    torch.cuda.synchronize()
-    if not (torch.equal(kc, pc) and torch.equal(kcar, pcar)):
-        raise AssertionError("B1 counts kernel disagrees with its plain "
-                             "version")
+    compare_counts(*calls["compute_counts"], "captured")
     a2, kw2 = calls["compute_instances"]
     ks, kg = K.instances(*a2, **kw2)
     ps, pg = P.instances_plain(*a2, **kw2)
@@ -523,8 +642,9 @@ def bounds(calls, tiles=False):
 
 
 def library_counts(calls):
-    """One-call-per-stage PyTorch yardstick of the B1 counts: corner
-    bincount of the rect difference array, then a 2-D cumsum."""
+    """One-call-per-stage PyTorch yardstick of the B1 counts alone (kept
+    for continuity with earlier runs): corner bincount of the rect
+    difference array, then a 2-D cumsum."""
     import torch
     a, kw = calls["compute_counts"]
     x0, y0, x1, y1 = (t.long() for t in a)
@@ -541,9 +661,39 @@ def library_counts(calls):
     return fn
 
 
-def profile_step(fn, out_dir, name="chip_smoke_profile.txt"):
-    """torch.profiler table of one train step (after a warm-up), sorted by
-    device time, written to ``out_dir/name``."""
+def library_counts_carry(calls):
+    """One-call-per-stage PyTorch yardstick of B1's whole function, counts
+    and carry: a bincount of each Gaussian's four difference-array corners
+    in its chunk's plane ([nchunks, gy+1, gx+1]; empty and inverted rects
+    weigh 0), a 2-D cumsum per chunk, then an exclusive cumsum over the
+    chunks.  Returns (counts [T], carry [nchunks, T]) int32."""
+    import torch
+    a, kw = calls["compute_counts"]
+    gx, gy = kw["grid_x"], kw["grid_y"]
+    gc = kw.get("gauss_chunk", 256)
+    x0, y0 = a[0].long().clamp(0, gx), a[1].long().clamp(0, gy)
+    x1, y1 = a[2].long().clamp(0, gx), a[3].long().clamp(0, gy)
+    ns = x0.numel()
+    nchunks, W = ns // gc, gx + 1
+    plane = torch.arange(ns, device=x0.device) // gc * ((gy + 1) * W)
+
+    def fn():
+        live = ((x1 > x0) & (y1 > y0)).float()
+        idx = torch.cat([plane + y0 * W + x0, plane + y0 * W + x1,
+                         plane + y1 * W + x0, plane + y1 * W + x1])
+        wts = torch.cat([live, -live, -live, live])
+        d = torch.bincount(idx, weights=wts, minlength=nchunks * (gy + 1) * W)
+        per = d.view(nchunks, gy + 1, W).cumsum(1).cumsum(2)[:, :gy, :gx]
+        per = per.reshape(nchunks, gx * gy).to(torch.int32)
+        inc = per.cumsum(0, dtype=torch.int32)
+        return inc[-1], inc - per
+    return fn
+
+
+def profile_step(fn, out_dir, name="chip_smoke_profile.txt", steps=3):
+    """torch.profiler table of ``steps`` train steps (after a warm-up),
+    sorted by device time, written to ``out_dir/name``, with the device
+    busy time per step counted by name as ``device_ms`` counts it."""
     import os
 
     import torch
@@ -552,14 +702,20 @@ def profile_step(fn, out_dir, name="chip_smoke_profile.txt"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(0.02)
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
+        time.sleep(0.02)
+    busy, ops, rec = device_by_name(prof, steps)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
+    head = (f"{steps} steps; device busy {busy:.3f} ms per step ({ops} "
+            f"device operations, {rec:.3f} of them recorded)")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:
-        f.write(table)
-    log(f"[profile] one train step ({name}), by device time:")
+        f.write(head + "\n" + table)
+    log(f"[profile] {name}: {head}; by device time over the {steps} steps:")
     for line in table.splitlines()[:25]:
         log("[profile] " + line)
 
@@ -610,6 +766,26 @@ def stage2_inputs(state, device, *, samples=S2_SAMPLES, env_h=S2_ENV_H,
     return {**st, "params": params}, bake, env
 
 
+def compare_env_forward(a, label):
+    """B7 forward kernel vs plain on (env, u, v) ``a``: within
+    TOL_ENV_FWD; returns the max absolute error."""
+    import torch
+
+    from svgir_tpu_torch.kernels import env_lookup as K
+    from svgir_tpu_torch.ops import env_lookup_pallas as P
+
+    with torch.no_grad():
+        kf, pf = K.env_lookup_forward(*a), P.env_lookup_forward_plain(*a)
+        torch.cuda.synchronize()
+    if kf.shape != pf.shape:
+        raise AssertionError(f"B7 [{label}] forward of shape "
+                             f"{tuple(kf.shape)}, not {tuple(pf.shape)}")
+    ef = float((kf - pf).abs().max()) if pf.numel() else 0.0
+    if ef > TOL_ENV_FWD:
+        raise AssertionError(f"B7 [{label}] forward differs by {ef}")
+    return ef
+
+
 def compare_env(calls, label):
     """B7 forward and backward kernel vs plain on the captured inputs;
     returns the max absolute errors."""
@@ -618,21 +794,18 @@ def compare_env(calls, label):
     from svgir_tpu_torch.kernels import env_lookup as K
     from svgir_tpu_torch.ops import env_lookup_pallas as P
 
+    a, _ = calls["env_lookup_forward"]
+    ef = compare_env_forward(a, label)
     with torch.no_grad():
-        a, _ = calls["env_lookup_forward"]
-        kf, pf = K.env_lookup_forward(*a), P.env_lookup_forward_plain(*a)
         b, bkw = calls["env_lookup_backward"]
         kb = K.env_lookup_backward(*b, **bkw)
         pb = P.env_lookup_backward_plain(*b, **bkw)
         torch.cuda.synchronize()
-    ef = float((kf - pf).abs().max())
     eb = float((kb - pb).abs().max())
     scale = max(float(pb.abs().max()), 1e-30)
     log(f"[kernels] {label}: B7 forward max|err| {ef:.3g} over "
         f"{a[1].numel()} queries; backward max|err| {eb:.3g} "
         f"({eb / scale:.3g} of max |d_env| {scale:.4g})")
-    if ef > TOL_ENV_FWD:
-        raise AssertionError(f"B7 [{label}] forward differs by {ef}")
     if eb > TOL_ENV_BWD * scale:
         raise AssertionError(f"B7 [{label}] backward differs by {eb}")
     return ef, eb
@@ -646,12 +819,11 @@ def compare_env(calls, label):
 ENV_TAP_OPS = 18
 
 
-def env_bounds(calls):
-    """Least time (ms) of B7's forward and backward on the captured inputs:
-    each query's u, v read once, its samples (forward) or cotangents
-    (backward) once, the env read (forward) or d_env written (backward)
-    once."""
-    a, _ = calls["env_lookup_forward"]
+def env_bounds(a):
+    """Least time (ms) of B7's forward and backward on the forward's
+    arguments ``a`` (env, u, v): each query's u, v read once, its samples
+    (forward) or cotangents (backward) once, the env read (forward) or
+    d_env written (backward) once."""
     h, w, c = a[0].shape
     m = a[1].numel()
     nb = 4 * (2 * m + m * c + h * w * c)
@@ -663,25 +835,34 @@ def env_bounds(calls):
     return out
 
 
-def library_env(calls):
-    """One-call PyTorch yardsticks of B7: grid_sample(align_corners=True)
-    on the same env and coordinates, and its env gradient alone."""
+def _grid_sample_args(a):
     import torch
-    import torch.nn.functional as F
-
-    env, u, v = calls["env_lookup_forward"][0]
-    h, w, c = env.shape
+    env, u, v = a
+    h, w = env.shape[:2]
     envt = env.detach().permute(2, 0, 1)[None].contiguous()   # [1, C, H, W]
     grid = torch.stack([u / (w - 1) * 2 - 1, v / (h - 1) * 2 - 1],
                        -1)[None, None]                           # [1, 1, M, 2]
+    return envt, grid
+
+
+def library_env_forward(a):
+    """One-call PyTorch yardstick of B7's forward on (env, u, v) ``a``:
+    grid_sample(align_corners=True) on the same env and coordinates."""
+    import torch.nn.functional as F
+    envt, grid = _grid_sample_args(a)
+    return lambda: F.grid_sample(envt, grid, mode="bilinear",
+                                 align_corners=True)
+
+
+def library_env_backward(calls):
+    """One-call PyTorch yardstick of B7's backward: grid_sample's env
+    gradient alone, on the step's coordinates and cotangents."""
+    import torch
+    envt, grid = _grid_sample_args(calls["env_lookup_forward"][0])
     g = calls["env_lookup_backward"][0][2]
     gout = g.t().contiguous()[None, :, None, :]                  # [1, C, 1, M]
-    return {
-        "env_lookup_forward": lambda: F.grid_sample(
-            envt, grid, mode="bilinear", align_corners=True),
-        "env_lookup_backward": lambda: torch.ops.aten.grid_sampler_2d_backward(
-            gout, envt, grid, 0, 0, True, [True, False]),
-    }
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout, envt, grid, 0, 0, True, [True, False])
 
 
 def small_stage2(device, n=2000, res=96, samples=8, seed=3):
@@ -1126,16 +1307,17 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
     if profile_dir:
         profile_step(lambda: trainer.bake_radiance_compact(params, alive,
                                                            **bkw),
-                     profile_dir, "chip_smoke_profile_bake.txt")
-    ms = cuda_ms(lambda: MP.march(grid, o, d, **mkw), reps=10)
-    pms = cuda_ms(lambda: MP.march_plain(grid, o, d, **mkw), reps=2,
-                  warmup=1)
+                     profile_dir, "chip_smoke_profile_bake.txt", steps=1)
+    with torch.no_grad():
+        tb = timings(lambda: MP.march(grid, o, d, **mkw),
+                     lambda: MP.march_plain(grid, o, d, **mkw), reps=10,
+                     plain_reps=2)
     work = march_work(grid, o, d, bench_t, **{x: mkw[x] for x in
                                               ("n_steps", "kmax", "k")})
     bms, by = march_bound(work, len(o), k)
     log(f"[bake timing] warm bake {warm_s:.3f} s ({per_bake} B8 launches, "
-        f"{len(o)} rays each but the last); B8 {ms:.4f} ms per launch "
-        f"(plain {pms:.3f} ms, bound {bms:.4f} ms by {by}); the chunk's "
+        f"{len(o)} rays each but the last); B8 {fmt_times(tb)}, bound "
+        f"{bms:.4f} ms by {by}; the chunk's "
         f"rays visit {work['all_blocks']} blocks, {work['blocks']} before "
         f"their lists are settled, {work['distinct_blocks']} distinct; "
         f"card: {card}")
@@ -1145,15 +1327,16 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
     RAD.bake_radiance(*in_inputs, **in_kw)
     torch.cuda.synchronize()
     warm_in_s = time.perf_counter() - t0
-    ms_i = cuda_ms(lambda: MP.march(grid_i, o_i, d_i, **imkw), reps=10)
-    pms_i = cuda_ms(lambda: MP.march_plain(grid_i, o_i, d_i, **imkw), reps=2,
-                    warmup=1)
+    with torch.no_grad():
+        tb_i = timings(lambda: MP.march(grid_i, o_i, d_i, **imkw),
+                       lambda: MP.march_plain(grid_i, o_i, d_i, **imkw),
+                       reps=10, plain_reps=2)
     work_i = march_work(grid_i, o_i, d_i, in_t,
                         **{x: imkw[x] for x in ("n_steps", "kmax", "k")})
     bms_i, by_i = march_bound(work_i, len(o_i), imkw["k"])
     log(f"[bake timing] inward bench bake (k 16): warm {warm_in_s:.3f} s; "
-        f"B8 on its first chunk {ms_i:.4f} ms (plain {pms_i:.3f} ms, bound "
-        f"{bms_i:.4f} ms by {by_i}); the chunk's rays visit "
+        f"B8 on its first chunk {fmt_times(tb_i)}, bound "
+        f"{bms_i:.4f} ms by {by_i}; the chunk's rays visit "
         f"{work_i['all_blocks']} blocks, {work_i['blocks']} before their "
         f"lists are settled, {work_i['distinct_blocks']} distinct; grid res "
         f"{grid_i.res}, cap {grid_i.cell_cap}; card: {card}")
@@ -1170,12 +1353,11 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
             f"{t_b[True]:.3f} ms (median of 3, warm); card: {card}")
     entry = {"route": "cuda", "source": "svgir_tpu_torch/csrc/march.cu",
              "replaces": "svgir_tpu/ops/march_pallas.py:66",
-             "launches": launches["march"], "library_ms": None}
-    return [{"name": "march", **entry, "max_abs_err": err, "ms": ms,
-             "plain_ms": pms, "bound_ms": bms, "bound_by": by},
+             "launches": launches["march"]}
+    return [{"name": "march", **entry, "max_abs_err": err, **tb,
+             "bound_ms": bms, "bound_by": by},
             {"name": "march_inward_bench", **entry, "max_abs_err": err_i,
-             "ms": ms_i, "plain_ms": pms_i, "bound_ms": bms_i,
-             "bound_by": by_i}]
+             **tb_i, "bound_ms": bms_i, "bound_by": by_i}]
 
 
 # ---------------------------------------------------------------------------
@@ -1592,17 +1774,14 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
     report = []
     for name, (kfn, pfn, rep, src, lc, err, bd, lfn) in timed.items():
         with torch.no_grad():
-            ms = cuda_ms(kfn, reps=20)
-            pms = cuda_ms(pfn, reps=3, warmup=1)
-            lms = cuda_ms(lfn, reps=20) if lfn else None
+            t = timings(kfn, pfn, lfn)
         report.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": lc, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lms})
-        log(f"[tiles timing] {name}: {ms:.4f} ms (plain {pms:.3f} ms, bound "
-            f"{bd[0]:.4f} ms by {bd[1]}"
-            + (f", F.pad / slice copy {lms:.4f} ms" if lms else "")
-            + f"; {lc} launches on its path); card: {card}")
+            "launches": lc, "max_abs_err": err, **t,
+            "bound_ms": bd[0], "bound_by": bd[1]})
+        log(f"[tiles timing] {name}: " + fmt_times(t, "F.pad / slice copy")
+            + f", bound {bd[0]:.4f} ms by {bd[1]}; {lc} launches on its "
+            f"path; card: {card}")
     log(f"[tiles] phases 17-23: {time.time() - t_tiles:.1f} s")
     return report
 
@@ -1627,10 +1806,14 @@ def main() -> int:
     from svgir_tpu_torch import kernels
     from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
     from svgir_tpu_torch.kernels import build
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.ops import binning as BN
     from svgir_tpu_torch.ops import binning_pallas as BP
     from svgir_tpu_torch.ops import blend_pallas_strip as BS
+    from svgir_tpu_torch.ops.preprocess import preprocess
     from svgir_tpu_torch.render.stage1 import render_view_stage1
     from svgir_tpu_torch.train import optim, trainer
+    inputs = kernel_inputs()
 
     dev = "cuda"
     t_start = time.time()
@@ -1712,6 +1895,27 @@ def main() -> int:
     calls = cap_bench.calls
     compare_binning(calls)
     log("[kernels] bench: B1, B2 equal to their plain versions")
+    # B1 on the bench scene at tile 16 (2,500 tiles) and on the synthetic
+    # rects of the CPU tests (tests/torch_kernel_inputs.py)
+    p1 = state["params"]
+    cfg16 = RasterConfig(tile=16)
+    with torch.no_grad(), Capture() as cap16:
+        prep16 = preprocess(
+            p1["xyz"], G.get_scaling(p1), G.get_rotation(p1), cam.world_view,
+            cam.full_proj, cam.camera_center, width=cam.width,
+            height=cam.height, tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
+            focal_x=cam.focal_x, focal_y=cam.focal_y,
+            colors=torch.zeros_like(p1["xyz"]), cfg=cfg16)
+        BN.bin_instances_counting(prep16, width=cam.width, height=cam.height,
+                                  cfg=cfg16)
+    done = [compare_counts(*cap16.calls["compute_counts"],
+                           "bench scene, tile 16")]
+    for name in inputs.RECT_CASES:
+        rects, (gx, gy) = inputs.synthetic_rects(name)
+        done.append(compare_counts(
+            [torch.from_numpy(r).to(dev) for r in rects],
+            dict(grid_x=gx, grid_y=gy), f"synthetic {name}"))
+    log("[kernels] B1 equal to its plain version on " + "; ".join(done))
     err3, err4 = compare_blend(calls, "bench")
 
     sc_dev, cam_dev = small_scene(dev)
@@ -1753,10 +1957,15 @@ def main() -> int:
     a2, kw2 = calls["compute_instances"]
     a3, kw3 = calls["blend_forward"]
     a4, kw4 = calls["blend_backward"]
+    lib_b1 = library_counts_carry(calls)
+    lc, lcar = lib_b1()
+    kc, kcar = KB.counts(*a1, **kk1)
+    if not (torch.equal(lc, kc) and torch.equal(lcar, kcar)):
+        raise AssertionError("the B1 yardstick computes another function")
+    lib_b1_counts = library_counts(calls)
     timed = {
         "binning_counts": (lambda: KB.counts(*a1, **kk1),
-                           lambda: BP.counts_plain(*a1, **kk1),
-                           library_counts(calls)),
+                           lambda: BP.counts_plain(*a1, **kk1), lib_b1),
         "binning_instances": (lambda: KB.instances(*a2, **kw2),
                               lambda: BP.instances_plain(*a2, **kw2), None),
         "blend_forward": (lambda: KBL.blend_forward(*a3, **kw3),
@@ -1785,19 +1994,25 @@ def main() -> int:
         f"pass the footprint test, {wk['gated']} blend")
     report = []
     for name, (kfn, pfn, lfn) in timed.items():
-        ms = cuda_ms(kfn, reps=20)
-        pms = cuda_ms(pfn, reps=3, warmup=1)
-        lms = cuda_ms(lfn, reps=20) if lfn else None
-        report.append({
+        t = timings(kfn, pfn, lfn)
+        entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": train_launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
-            "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
-            "library_ms": lms})
-        log(f"[timing] {name}: {ms:.4f} ms (plain {pms:.3f} ms, bound "
-            f"{bnd[name][0]:.4f} ms by {bnd[name][1]}"
-            + (f", bincount+cumsum {lms:.4f} ms" if lms else "")
-            + f"); card: {card}")
+            "max_abs_err": errs[name], **t,
+            "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+        extra = ""
+        if name == "binning_counts":
+            entry["library_counts_only_ms"] = cuda_ms(lib_b1_counts, reps=20)
+            entry["library_counts_only_device_ms"] = device_ms(
+                lib_b1_counts)[0]
+            extra = (f"; counts-only bincount + 2-D cumsum "
+                     f"{entry['library_counts_only_ms']:.4f} ms per call, "
+                     f"{entry['library_counts_only_device_ms']:.4f} ms on "
+                     "the device")
+        report.append(entry)
+        log(f"[timing] {name}: " + fmt_times(t, "bincount + cumsums")
+            + f", bound {bnd[name][0]:.4f} ms by {bnd[name][1]}{extra}; "
+            f"card: {card}")
 
     def render_once(c):
         with torch.no_grad():
@@ -1902,6 +2117,24 @@ def main() -> int:
         raise AssertionError("stage-2 blend widths are not CA/CV 13/13 "
                              "(train) and 16/16 (eval)")
     e7f, e7b = compare_env(c2, "stage-2 step")
+    evals = cap_s2_render.every["env_lookup_forward"]
+    e7fe = [compare_env_forward(a, f"stage-2 eval call {i}")
+            for i, (a, _) in enumerate(evals)]
+    e7f_edge = 0.0
+    for h, w in ((16, 32), (32, 64)):
+        for m in (37, 1_027, 20_003):
+            env, u, v, _ = inputs.env_lookup_inputs(h, w, 3, m, seed=m)
+            env, u, v = (torch.from_numpy(x).to(dev) for x in (env, u, v))
+            e7f_edge = max(e7f_edge, compare_env_forward(
+                (env, u, v), f"edge cases {h}x{w}, M={m}"))
+            # u, v starting 4 bytes into their buffers: not 16-byte aligned
+            e7f_edge = max(e7f_edge, compare_env_forward(
+                (env, u[1:], v[1:]), f"edge cases {h}x{w}, M={m - 1}, "
+                "unaligned"))
+    log(f"[kernels] B7 forward on the eval render's {len(evals)} lookups "
+        f"({', '.join(str(a[1].numel()) for a, _ in evals)} queries): "
+        f"max|err| {max(e7fe):.3g}; on the edge cases (16x32 and 32x64, "
+        f"M 37, 1,027, 20,003 and one less, unaligned): {e7f_edge:.3g}")
     compare_binning(c2)
     e3s2, e4s2 = compare_blend(c2, "stage-2 step CA=13 CV=13")
     e3s2e, _ = compare_blend(cap_s2_render.calls, "stage-2 eval CA=16 CV=16")
@@ -1940,10 +2173,9 @@ def main() -> int:
     bnd2 = bounds(c2)
     bnd2e = bounds({**c2, "blend_forward": cap_s2_render.calls[
         "blend_forward"]})
-    bnd_env = env_bounds(c2)
-    lib_env = library_env(c2)
     fa, _ = c2["env_lookup_forward"]
     ba, bkw = c2["env_lookup_backward"]
+    bnd_env = env_bounds(fa)
     b3, kw3s = c2["blend_forward"]
     b4, kw4s = c2["blend_backward"]
     b3e, kw3e = cap_s2_render.calls["blend_forward"]
@@ -1953,13 +2185,13 @@ def main() -> int:
             lambda: EP.env_lookup_forward_plain(*fa),
             "svgir_tpu/ops/env_lookup_pallas.py:63",
             "svgir_tpu_torch/csrc/env_lookup.cu", s2_train_launches, e7f,
-            bnd_env["env_lookup_forward"], lib_env["env_lookup_forward"]),
+            bnd_env["env_lookup_forward"], library_env_forward(fa)),
         "env_lookup_backward": (
             lambda: KE.env_lookup_backward(*ba, **bkw),
             lambda: EP.env_lookup_backward_plain(*ba, **bkw),
             "svgir_tpu/ops/env_lookup_pallas.py:76",
             "svgir_tpu_torch/csrc/env_lookup.cu", s2_train_launches, e7b,
-            bnd_env["env_lookup_backward"], lib_env["env_lookup_backward"]),
+            bnd_env["env_lookup_backward"], library_env_backward(c2)),
         "blend_forward_stage2": (
             lambda: KBL.blend_forward(*b3, **kw3s),
             lambda: BS.blend_forward_plain(*b3, **kw3s),
@@ -1976,20 +2208,26 @@ def main() -> int:
             replaces["blend_forward"], sources["blend_forward"],
             s2_render_launches, e3s2e, bnd2e["blend_forward"], None),
     }
+    # B7's forward on each of the eval render's lookups (1.2M bake
+    # directions and 640,000 camera rays)
+    for i, (a, _) in enumerate(evals):
+        timed2["env_lookup_forward_stage2_eval" + (f"_{i + 1}" if i else "")] \
+            = (lambda a=a: KE.env_lookup_forward(*a),
+               lambda a=a: EP.env_lookup_forward_plain(*a),
+               "svgir_tpu/ops/env_lookup_pallas.py:63",
+               "svgir_tpu_torch/csrc/env_lookup.cu", s2_render_launches,
+               e7fe[i], env_bounds(a)["env_lookup_forward"],
+               library_env_forward(a))
     for name, (kfn, pfn, rep, src, lc, err, bd, lfn) in timed2.items():
-        ms = cuda_ms(kfn, reps=20)
-        pms = cuda_ms(pfn, reps=3, warmup=1)
-        lms = cuda_ms(lfn, reps=20) if lfn else None
-        key = name.replace("_stage2_eval", "").replace("_stage2", "")
+        with torch.no_grad():
+            t = timings(kfn, pfn, lfn)
+        key = name.split("_stage2")[0]
         report.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": lc[key], "max_abs_err": err, "ms": ms,
-            "plain_ms": pms, "bound_ms": bd[0], "bound_by": bd[1],
-            "library_ms": lms})
-        log(f"[s2 timing] {name}: {ms:.4f} ms (plain {pms:.3f} ms, bound "
-            f"{bd[0]:.4f} ms by {bd[1]}"
-            + (f", grid_sample {lms:.4f} ms" if lms else "")
-            + f"); card: {card}")
+            "launches": lc[key], "max_abs_err": err, **t,
+            "bound_ms": bd[0], "bound_by": bd[1]})
+        log(f"[s2 timing] {name}: " + fmt_times(t, "grid_sample")
+            + f", bound {bd[0]:.4f} ms by {bd[1]}; card: {card}")
     wk2 = bnd2["blend_work"]
     log(f"[s2 timing] blend work on the stage-2 step's inputs: {wk2['rows']} "
         f"real rows, {wk2['pairs']} pairs, {wk2['ok']} pass the footprint "

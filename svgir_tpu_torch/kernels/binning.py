@@ -8,26 +8,31 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import check, library, require, stream
+from svgir_tpu_torch.kernels.build import (SMEM_OPT_IN_MAX, check, entry,
+                                           require, stream)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib() -> ctypes.CDLL:
-    lib = library("binning")
-    lib.svgir_counts.argtypes = [_P] * 4 + [_I] * 4 + [_P, _P, _P]
-    lib.svgir_counts.restype = _I
-    lib.svgir_instances.argtypes = [_P] * 8 + [_I] * 5 + [_P, _P, _P]
-    lib.svgir_instances.restype = _I
-    return lib
+# (x0, y0, x1, y1, nchunks, gauss_chunk, grid_x, grid_y, counts, carry,
+#  stream)
+_COUNTS = (_P,) * 4 + (_I,) * 4 + (_P,) * 3
+# (x0, y0, x1, y1, offsets, order, table, total_raw, ns, m, gauss_chunk,
+#  grid_x, num_tiles, slot, gid, stream)
+_INSTANCES = (_P,) * 8 + (_I,) * 5 + (_P,) * 3
 
 
 def counts(x0, y0, x1, y1, *, grid_x: int, grid_y: int, gauss_chunk: int):
     """Depth-sorted rects [Ns] int32 (Ns a multiple of ``gauss_chunk``) ->
-    (counts [T] int32, carry [Ns/gauss_chunk, T] int32)."""
+    (counts [T] int32, carry [Ns/gauss_chunk, T] int32).  Two device
+    kernels: per-chunk counts into ``carry``, then its scan over chunks."""
     ns = x0.shape[0]
     if ns % gauss_chunk:
         raise ValueError(f"Ns={ns} is not a multiple of {gauss_chunk}")
+    nbytes = 4 * (grid_x + 1) * (grid_y + 1)
+    if grid_x < 1 or grid_y < 1 or nbytes > SMEM_OPT_IN_MAX:
+        raise ValueError(
+            f"a {grid_x} x {grid_y} tile grid: the counts kernel takes grids "
+            f"whose (grid_x+1)*(grid_y+1)*4 bytes of shared memory, here "
+            f"{nbytes}, fit the {SMEM_OPT_IN_MAX} a block may opt in to")
     for name, a in (("x0", x0), ("y0", y0), ("x1", x1), ("y1", y1)):
         require(name, a, torch.int32, (ns,))
     num_tiles = grid_x * grid_y
@@ -35,7 +40,7 @@ def counts(x0, y0, x1, y1, *, grid_x: int, grid_y: int, gauss_chunk: int):
     out_counts = torch.empty(num_tiles, dtype=torch.int32, device=x0.device)
     carry = torch.empty(nchunks, num_tiles, dtype=torch.int32,
                         device=x0.device)
-    rc = _lib().svgir_counts(
+    rc = entry("binning", "svgir_counts", _COUNTS)(
         x0.data_ptr(), y0.data_ptr(), x1.data_ptr(), y1.data_ptr(),
         nchunks, gauss_chunk, grid_x, grid_y, out_counts.data_ptr(),
         carry.data_ptr(), stream(x0))
@@ -59,7 +64,7 @@ def instances(x0, y0, x1, y1, offsets, order, table, total_raw, *, m: int,
     require("total_raw", total_raw, torch.int32, ())
     slot = torch.empty(m, dtype=torch.int32, device=x0.device)
     gid = torch.empty(m, dtype=torch.int32, device=x0.device)
-    rc = _lib().svgir_instances(
+    rc = entry("binning", "svgir_instances", _INSTANCES)(
         x0.data_ptr(), y0.data_ptr(), x1.data_ptr(), y1.data_ptr(),
         offsets.data_ptr(), order.data_ptr(), table.data_ptr(),
         total_raw.data_ptr(), ns, m, gauss_chunk, grid_x, num_tiles,

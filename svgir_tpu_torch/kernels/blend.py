@@ -16,46 +16,24 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import check, library, require, stream
+from svgir_tpu_torch.kernels.build import check, entry, require, stream
 from svgir_tpu_torch.ops.common import NG
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _forward_fn():
-    # (slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y, tile,
-    #  chunk, img, eff, wsum, stream)
-    f = library("blend_forward").svgir_blend_forward
-    f.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 4
-    f.restype = _I
-    return f
-
-
-def _backward_fn():
-    # (slab, tile_start, eff, g_img, logt_img, g_wsum, kr, ca, cv, grid_x,
-    #  grid_y, tile, chunk, d_slab, stream)
-    f = library("blend_backward").svgir_blend_backward
-    f.argtypes = [_P] * 6 + [_I] * 7 + [_P] * 2
-    f.restype = _I
-    return f
-
-
-def _forward_tiles_fn():
-    # (slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y, tile,
-    #  chunk, out, wsum, stream)
-    f = library("blend_forward").svgir_blend_forward_tiles
-    f.argtypes = [_P] * 3 + [_I] * 7 + [_P] * 3
-    f.restype = _I
-    return f
-
-
-def _backward_tiles_fn():
-    # (slab, tile_start, g_out, meta, g_wsum, kr, ca, cv, grid_x, grid_y,
-    #  tile, chunk, d_slab, stream)
-    f = library("blend_backward").svgir_blend_backward_tiles
-    f.argtypes = [_P] * 5 + [_I] * 7 + [_P] * 2
-    f.restype = _I
-    return f
+# (slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y, tile, chunk,
+#  img, eff, wsum, stream)
+_FORWARD = (_P,) * 3 + (_I,) * 7 + (_P,) * 4
+# (slab, tile_start, eff, g_img, logt_img, g_wsum, kr, ca, cv, grid_x,
+#  grid_y, tile, chunk, d_slab, stream)
+_BACKWARD = (_P,) * 6 + (_I,) * 7 + (_P,) * 2
+# (slab, tile_start, tile_count, kr, ca, cv, grid_x, grid_y, tile, chunk,
+#  out, wsum, stream)
+_FORWARD_TILES = (_P,) * 3 + (_I,) * 7 + (_P,) * 3
+# (slab, tile_start, g_out, meta, g_wsum, kr, ca, cv, grid_x, grid_y, tile,
+#  chunk, d_slab, stream)
+_BACKWARD_TILES = (_P,) * 5 + (_I,) * 7 + (_P,) * 2
 
 
 def _check_layout(slab, ca: int, cv: int, tile: int, chunk: int) -> None:
@@ -89,7 +67,7 @@ def blend_forward(slab, tile_start, tile_count, *, ca: int, cv: int,
     # rows outside every tile's range are never written by the kernel
     wsum = torch.zeros(m, dtype=torch.float32, device=dev) if emit_wsum \
         else None
-    rc = _forward_fn()(
+    rc = entry("blend_forward", "svgir_blend_forward", _FORWARD)(
         slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), kr, ca,
         cv, grid_x, grid_y, tile, chunk, img.data_ptr(), eff.data_ptr(),
         wsum.data_ptr() if emit_wsum else None, stream(slab))
@@ -120,7 +98,7 @@ def blend_backward(slab, tile_start, eff, g_img, logt_img, g_wsum, *,
         require("g_wsum", g_wsum, torch.float32, (m,))
     # rows of skipped chunks and of padding stay zero
     d_slab = torch.zeros(m, kr, dtype=torch.float32, device=slab.device)
-    rc = _backward_fn()(
+    rc = entry("blend_backward", "svgir_blend_backward", _BACKWARD)(
         slab.data_ptr(), tile_start.data_ptr(), eff.data_ptr(),
         g_img.data_ptr(), logt_img.data_ptr(),
         g_wsum.data_ptr() if g_wsum is not None else None, kr, ca, cv, grid_x,
@@ -148,7 +126,8 @@ def blend_forward_tiles(slab, tile_start, tile_count, *, ca: int, cv: int,
     # rows of skipped chunks and outside every tile's range stay zero
     wsum = torch.zeros(m, dtype=torch.float32, device=dev) if emit_wsum \
         else None
-    rc = _forward_tiles_fn()(
+    rc = entry("blend_forward", "svgir_blend_forward_tiles",
+               _FORWARD_TILES)(
         slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(), kr, ca,
         cv, grid_x, grid_y, tile, chunk, out.data_ptr(),
         wsum.data_ptr() if emit_wsum else None, stream(slab))
@@ -176,7 +155,8 @@ def blend_backward_tiles(slab, tile_start, g_out, meta, g_wsum, *, ca: int,
         require("g_wsum", g_wsum, torch.float32, (m,))
     # rows of skipped chunks and of padding stay zero
     d_slab = torch.zeros(m, kr, dtype=torch.float32, device=slab.device)
-    rc = _backward_tiles_fn()(
+    rc = entry("blend_backward", "svgir_blend_backward_tiles",
+               _BACKWARD_TILES)(
         slab.data_ptr(), tile_start.data_ptr(), g_out.data_ptr(),
         meta.data_ptr(), g_wsum.data_ptr() if g_wsum is not None else None,
         kr, ca, cv, grid_x, grid_y, tile, chunk, d_slab.data_ptr(),

@@ -13,6 +13,7 @@ Nothing here runs at import: the first wrapper call builds and loads.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,6 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMEM_OPT_IN_MAX = 232_448   # bytes of shared memory a Hopper block may use
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -93,6 +95,24 @@ def library(stem: str) -> ctypes.CDLL:
         return _libs[stem]
 
 
+@functools.cache
+def entry(stem: str, name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``csrc/<stem>.cu``, its argument types
+    set once and an int (a CUDA error code) as its result; built and
+    loaded on first use, then cached with its configuration."""
+    f = getattr(library(stem), name)
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (read once)."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc == 1:
@@ -117,6 +137,7 @@ def require(name: str, t, dtype, shape) -> None:
 
 
 def stream(t) -> int:
-    """Handle of the current CUDA stream of ``t``'s device."""
+    """Handle of the current CUDA stream of ``t``'s device (read without
+    making a ``torch.cuda.Stream``: this runs once per launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

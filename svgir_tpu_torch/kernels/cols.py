@@ -12,17 +12,10 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import check, library, require, stream
+from svgir_tpu_torch.kernels.build import check, entry, require, stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _fn(name: str):
-    # (x, m, kin, kout, block, out, stream)
-    f = getattr(library("cols"), name)
-    f.argtypes = [_P] + [_I] * 4 + [_P] * 2
-    f.restype = _I
-    return f
+_COPY = (_P,) + (_I,) * 4 + (_P,) * 2   # (x, m, kin, kout, block, out, stream)
 
 
 def _copy(name: str, x, kout: int, block: int):
@@ -31,7 +24,7 @@ def _copy(name: str, x, kout: int, block: int):
     m, kin = x.shape
     require("x", x, torch.float32, (m, kin))
     out = torch.empty(m, kout, dtype=torch.float32, device=x.device)
-    rc = _fn(f"svgir_{name}")(x.data_ptr(), m, kin, kout, block,
+    rc = entry("cols", f"svgir_{name}", _COPY)(x.data_ptr(), m, kin, kout, block,
                               out.data_ptr(), stream(x))
     check(rc, f"svgir_{name}")
     LAUNCHES[name] += 1

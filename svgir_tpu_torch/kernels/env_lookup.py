@@ -13,25 +13,20 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import check, library, require, stream
+from svgir_tpu_torch.kernels.build import (SMEM_OPT_IN_MAX, check, entry,
+                                           require, sm_count, stream)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (env, u, v, m, h, w, c, nblocks, out, stream)
+_FORWARD = (_P,) * 3 + (_L,) + (_I,) * 4 + (_P,) * 2
+# (u, v, g, m, h, w, c, nblocks, partial, d_env, stream)
+_BACKWARD = (_P,) * 3 + (_L,) + (_I,) * 4 + (_P,) * 3
 
-SMEM_OPT_IN_MAX = 232_448   # bytes of shared memory a Hopper block may use
-THREADS = 1024              # threads per block (csrc/env_lookup.cu)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = library("env_lookup")
-    # (env, u, v, m, h, w, c, nblocks, out, stream)
-    lib.svgir_env_lookup_forward.argtypes = [_P] * 3 + [_L] + [_I] * 4 + \
-        [_P, _P]
-    lib.svgir_env_lookup_forward.restype = _I
-    # (u, v, g, m, h, w, c, nblocks, partial, d_env, stream)
-    lib.svgir_env_lookup_backward.argtypes = [_P] * 3 + [_L] + [_I] * 4 + \
-        [_P] * 3
-    lib.svgir_env_lookup_backward.restype = _I
-    return lib
+# (threads per block, queries per thread, blocks per SM at most) of the
+# forward and the backward (csrc/env_lookup.cu): each block stages the env
+# (or sums into its own copy of d_env) once
+FWD_GRID = (512, 4, 2)
+BWD_GRID = (1024, 1, 2)
 
 
 def _check_env(h: int, w: int, c: int) -> None:
@@ -45,10 +40,10 @@ def _check_env(h: int, w: int, c: int) -> None:
             f"memory, more than the {SMEM_OPT_IN_MAX} a block may opt in to")
 
 
-def _nblocks(t: torch.Tensor, m: int) -> int:
-    """Two blocks per SM at most: each block stages the env once."""
-    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
-    return max(1, min(-(-m // THREADS), 2 * sms))
+def _nblocks(t: torch.Tensor, m: int, grid) -> int:
+    threads, per_thread, per_sm = grid
+    return max(1, min(-(-m // (threads * per_thread)),
+                      per_sm * sm_count(t.device.index)))
 
 
 def env_lookup_forward(env, u, v):
@@ -59,10 +54,10 @@ def env_lookup_forward(env, u, v):
     require("env", env, torch.float32, (h, w, c))
     require("u", u, torch.float32, (m,))
     require("v", v, torch.float32, (m,))
-    out = torch.empty(m, c, dtype=torch.float32, device=env.device)
-    rc = _lib().svgir_env_lookup_forward(
+    out = env.new_empty((m, c))
+    rc = entry("env_lookup", "svgir_env_lookup_forward", _FORWARD)(
         env.data_ptr(), u.data_ptr(), v.data_ptr(), m, h, w, c,
-        _nblocks(env, m), out.data_ptr(), stream(env))
+        _nblocks(env, m, FWD_GRID), out.data_ptr(), stream(env))
     check(rc, "svgir_env_lookup_forward")
     LAUNCHES["env_lookup_forward"] += 1
     return out
@@ -75,10 +70,10 @@ def env_lookup_backward(u, v, g, *, h: int, w: int):
     require("u", u, torch.float32, (m,))
     require("v", v, torch.float32, (m,))
     require("g", g, torch.float32, (m, c))
-    nb = _nblocks(g, m)
+    nb = _nblocks(g, m, BWD_GRID)
     partial = torch.empty(nb, h * w * c, dtype=torch.float32, device=g.device)
     d_env = torch.empty(h, w, c, dtype=torch.float32, device=g.device)
-    rc = _lib().svgir_env_lookup_backward(
+    rc = entry("env_lookup", "svgir_env_lookup_backward", _BACKWARD)(
         u.data_ptr(), v.data_ptr(), g.data_ptr(), m, h, w, c, nb,
         partial.data_ptr(), d_env.data_ptr(), stream(g))
     check(rc, "svgir_env_lookup_backward")

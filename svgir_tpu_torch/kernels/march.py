@@ -9,25 +9,18 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import check, library, require, stream
+from svgir_tpu_torch.kernels.build import check, entry, require, stream
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+# (block_geo, block_start, cell_count, rays_o, rays_d, r, lo xyz, inv_cell
+#  xyz, res, dt, t_max, n_steps, kmax, cap, k, out_t, out_idx, stream)
+_MARCH = (_P,) * 5 + (_L,) + (_F,) * 6 + (_I,) + (_F,) * 2 + (_I,) * 4 + \
+    (_P,) * 3
 
 BLK = 64           # candidates per block (csrc/march.cu SVGIR_MARCH_BLK)
 PACK_W = 32        # floats per packed row
 MAX_K = 128        # hits a ray may keep (four register slots per lane)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = library("march")
-    # (block_geo, block_start, cell_count, rays_o, rays_d, r, lo xyz,
-    #  inv_cell xyz, res, dt, t_max, n_steps, kmax, cap, k, out_t,
-    #  out_idx, stream)
-    lib.svgir_march.argtypes = [_P] * 5 + [_L] + [_F] * 6 + [_I] + \
-        [_F] * 2 + [_I] * 4 + [_P] * 3
-    lib.svgir_march.restype = _I
-    return lib
 
 
 def march(block_geo, block_start, cell_count, rays_o, rays_d, *, lo,
@@ -51,7 +44,7 @@ def march(block_geo, block_start, cell_count, rays_o, rays_d, *, lo,
     ic_h = [float(x) for x in inv_cell.tolist()]
     out_t = torch.empty(r, k, dtype=torch.float32, device=rays_o.device)
     out_idx = torch.empty(r, k, dtype=torch.int32, device=rays_o.device)
-    rc = _lib().svgir_march(
+    rc = entry("march", "svgir_march", _MARCH)(
         block_geo.data_ptr(), block_start.data_ptr(), cell_count.data_ptr(),
         rays_o.data_ptr(), rays_d.data_ptr(), r, *lo_h, *ic_h, res,
         float(dt), float(t_max), n_steps, kmax, cap, k, out_t.data_ptr(),

@@ -28,6 +28,8 @@ from svgir_tpu_torch.ops import binning as tbin
 from svgir_tpu_torch.ops import binning_pallas as tbp
 from svgir_tpu_torch.ops.preprocess import Preprocessed as TPrep
 
+from tests.torch_kernel_inputs import RECT_CASES, synthetic_rects
+
 GC = 256
 
 
@@ -104,6 +106,37 @@ def test_counts_plain_matches_pallas(case):
     assert int(ttot) == int(jtot)
     np.testing.assert_array_equal(tcarry.numpy(),
                                   np.asarray(jcarry)[:, :gx * gy])
+
+
+@pytest.mark.parametrize("name", sorted(RECT_CASES))
+def test_counts_plain_matches_pallas_on_synthetic_rects(name):
+    """Full-grid, zero-area, inverted, edge-ending and out-of-grid rects,
+    padding, a single chunk, tile 16 on a non-square grid: counts and
+    carry equal to the Pallas kernel's, and the counts to a direct count
+    of each tile's covering rects."""
+    (x0, y0, x1, y1), (gx, gy) = synthetic_rects(name)
+    assert ((x0 == 0) & (y0 == 0) & (x1 == gx) & (y1 == gy)).any()
+    assert ((x1 == x0) & (y1 > y0)).any() and ((x1 < x0) & (y1 < y0)).any()
+    assert ((x0 > 0) & (x1 == gx) & (y1 == gy)).any() and (x0 < 0).any()
+    js, jpc, jtot, jcarry = jbp.compute_counts(
+        *(jnp.asarray(a) for a in (x0, y0, x1, y1)), grid_x=gx, grid_y=gy,
+        chunk=128, gauss_chunk=GC, interpret=True)
+    ts, tpc, ttot, tcarry = tbp.compute_counts(
+        *(torch.as_tensor(a) for a in (x0, y0, x1, y1)), grid_x=gx,
+        grid_y=gy, chunk=128, gauss_chunk=GC)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tpc.numpy(), np.asarray(jpc))
+    assert int(ttot) == int(jtot)
+    np.testing.assert_array_equal(tcarry.numpy(),
+                                  np.asarray(jcarry)[:, :gx * gy])
+    tx, ty = np.arange(gx * gy) % gx, np.arange(gx * gy) // gx
+    cover = ((tx >= x0[:, None]) & (tx < x1[:, None])
+             & (ty >= y0[:, None]) & (ty < y1[:, None]))
+    counts = cover.sum(0)
+    np.testing.assert_array_equal(tpc.numpy(), -(-counts // 128) * 128)
+    per_chunk = cover.reshape(-1, GC, gx * gy).sum(1)
+    np.testing.assert_array_equal(tcarry.numpy(),
+                                  np.cumsum(per_chunk, 0) - per_chunk)
 
 
 def test_instances_plain_matches_pallas(case):

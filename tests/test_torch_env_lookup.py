@@ -29,26 +29,14 @@ from svgir_tpu_torch.kernels import env_lookup as K
 from svgir_tpu_torch.models import lights as TLT
 from svgir_tpu_torch.ops import env_lookup_pallas as P
 
+from tests.torch_kernel_inputs import env_lookup_inputs
+
 M = 20_000
 SHAPES = [(16, 32, 3), (32, 64, 3)]
 
 
 def _inputs(h, w, c, seed=0):
-    rng = np.random.default_rng(seed)
-    env = (3.0 * rng.random((h, w, c))).astype(np.float32)
-    u = rng.uniform(-1.5, w + 0.5, M).astype(np.float32)
-    v = rng.uniform(-1.5, h + 0.5, M).astype(np.float32)
-    k = 40
-    u[:k], v[:k] = 0.0, rng.uniform(0, h - 1, k)              # left edge
-    u[k:2 * k], v[k:2 * k] = w - 1, rng.uniform(0, h - 1, k)  # right edge
-    u[2 * k:3 * k], v[2 * k:3 * k] = rng.uniform(0, w - 1, k), 0.0
-    u[3 * k:4 * k], v[3 * k:4 * k] = rng.uniform(0, w - 1, k), h - 1
-    u[4 * k], v[4 * k] = w - 1, h - 1                         # corners
-    u[4 * k + 1], v[4 * k + 1] = 0.0, 0.0
-    u[4 * k + 2:5 * k] = rng.integers(0, w, k - 2)            # on the grid
-    v[4 * k + 2:5 * k] = rng.integers(0, h, k - 2)
-    g = rng.normal(size=(M, c)).astype(np.float32)
-    return env, u, v, g
+    return env_lookup_inputs(h, w, c, M, seed)
 
 
 def _t(x):
@@ -82,6 +70,26 @@ def test_plain_forward_matches_pallas_and_xla(case):
                                      _t(case["v"])).numpy()
     np.testing.assert_allclose(out, case["out_p"], atol=1e-6)
     np.testing.assert_allclose(out, case["out_x"], atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("m", [37, 1_027, 20_003])
+def test_plain_forward_matches_pallas_and_xla_at_edges(shape, m):
+    """M smaller than one block of the CUDA forward (512 threads x 4
+    queries), M not a multiple of 4, and a ragged second block of the
+    Pallas kernel; coordinates at exactly 0, W-1 and H-1, below 0 and past
+    the edge."""
+    env, u, v, _ = env_lookup_inputs(*shape, m=m, seed=m)
+    h, w, _ = shape
+    assert (u == 0).any() and (u == w - 1).any() and (v == h - 1).any()
+    assert (u < 0).any() and (u > w - 1).any() and (v < 0).any() and \
+        (v > h - 1).any()
+    out = P.env_lookup_forward_plain(_t(env), _t(u), _t(v)).numpy()
+    out_p = np.asarray(bilinear_lookup_pallas(jnp.asarray(env), u, v, True))
+    out_x = np.asarray(JLT._bilinear_lookup(jnp.asarray(env), u, v))
+    assert out.shape == (m, shape[2])
+    np.testing.assert_allclose(out, out_p, atol=1e-6)
+    np.testing.assert_allclose(out, out_x, atol=1e-6)
 
 
 def test_plain_backward_matches_pallas_and_xla(case):

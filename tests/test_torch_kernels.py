@@ -13,6 +13,8 @@ from svgir_tpu_torch.kernels import binning as KB
 from svgir_tpu_torch.kernels import blend as KBL
 from svgir_tpu_torch.kernels import build
 from svgir_tpu_torch.kernels import cols as KC
+from svgir_tpu_torch.kernels import env_lookup as KE
+from svgir_tpu_torch.kernels import march as KM
 from svgir_tpu_torch.ops import binning_pallas, blend_pallas, blend_pallas_strip
 
 
@@ -80,6 +82,81 @@ def test_cols_wrappers_refuse_cpu_tensors(fn):
         fn(torch.zeros(1024, 24), 64 if fn is KC.pad_cols else 16)
     with pytest.raises(ValueError, match="2-D"):
         fn(torch.zeros(1024), 16)
+
+
+def _march_args(k=16):
+    f, i = torch.zeros, torch.int32
+    return (f(2, 32 * KM.BLK), f(8, dtype=i), f(8, dtype=i), f(4, 3),
+            f(4, 3)), dict(lo=f(3), inv_cell=torch.ones(3), res=2,
+                           dt=torch.tensor(0.1), t_max=1.0, n_steps=4,
+                           kmax=1, cap=64, k=k)
+
+
+_u8 = torch.zeros(8)
+REFUSALS = {
+    "counts_cpu": (lambda: KB.counts(*_rects(), grid_x=4, grid_y=4,
+                                     gauss_chunk=256), "CUDA"),
+    "counts_ns": (lambda: KB.counts(*(a[:100] for a in _rects()), grid_x=4,
+                                    grid_y=4, gauss_chunk=256), "multiple"),
+    "counts_empty_grid": (lambda: KB.counts(*_rects(), grid_x=0, grid_y=4,
+                                            gauss_chunk=256), "tile grid"),
+    "counts_grid_past_smem": (lambda: KB.counts(
+        *_rects(), grid_x=300, grid_y=200, gauss_chunk=256), "opt in"),
+    "env_forward_cpu": (lambda: KE.env_lookup_forward(
+        torch.zeros(16, 32, 3), _u8, _u8), "CUDA"),
+    "env_forward_past_smem": (lambda: KE.env_lookup_forward(
+        torch.zeros(128, 256, 3), _u8, _u8), "opt in"),
+    "env_forward_one_row": (lambda: KE.env_lookup_forward(
+        torch.zeros(1, 32, 3), _u8, _u8), "H >= 2"),
+    "env_backward_cpu": (lambda: KE.env_lookup_backward(
+        _u8, _u8, torch.zeros(8, 3), h=16, w=32), "CUDA"),
+    "env_backward_past_smem": (lambda: KE.env_lookup_backward(
+        _u8, _u8, torch.zeros(8, 3), h=128, w=256), "opt in"),
+    "env_backward_no_channel": (lambda: KE.env_lookup_backward(
+        _u8, _u8, torch.zeros(8, 0), h=16, w=32), "C >= 1"),
+    "march_cpu": (lambda: KM.march(*_march_args()[0], **_march_args()[1]),
+                  "CUDA"),
+    "march_k": (lambda: KM.march(*_march_args()[0],
+                                 **_march_args(k=KM.MAX_K + 1)[1]),
+                "hits per ray"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_wrappers_refuse_cpu_tensors_and_bad_shapes(name):
+    """With their C entry points configured once and cached, the wrappers
+    of B1, B7 and B8 still refuse CPU tensors and what the kernels do not
+    take, before anything is built or launched."""
+    call, match = REFUSALS[name]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
+
+
+def test_entry_points_are_configured_once(monkeypatch):
+    """``build.entry`` loads a library and sets an entry's argument types on
+    its first call only; later calls return the same configured function."""
+    loads = []
+
+    class Lib:
+        def __init__(self):
+            self.fn = type("Fn", (), {})()
+
+    def fake_library(stem):
+        loads.append(stem)
+        return Lib()
+    monkeypatch.setattr(build, "library", fake_library)
+    build.entry.cache_clear()
+    try:
+        argtypes = (build.ctypes.c_void_p, build.ctypes.c_int)
+        f = build.entry("fake", "fn", argtypes)
+        assert build.entry("fake", "fn", argtypes) is f
+        assert f.argtypes == list(argtypes) and f.restype is \
+            build.ctypes.c_int
+        assert loads == ["fake"]
+    finally:
+        build.entry.cache_clear()
 
 
 def test_cpu_dispatch_runs_plain_versions_without_launches():
