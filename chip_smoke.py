@@ -5,10 +5,15 @@
     python3 chip_smoke.py --profile DIR   # also write torch.profiler
                                           # tables of stage-1, stage-2 and
                                           # S = 64 steps and a bake to DIR
+    python3 chip_smoke.py --parent DIR    # also time the blend kernels of
+                                          # another checkout DIR (its own
+                                          # wrappers, built there) in turns
+                                          # beside this tree's; repeatable
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build    compile csrc/*.cu with nvcc (in parallel) and load them;
-              print the card's name and power limit.
+              print the card's name and power limit, and the registers,
+              stack and spills of every blend instantiation (ptxas -v).
   2. render   the bench scene (800x800 camera, 50,000 surfels on a ball
               shell, rotation_init="normal", OptimizationConfig defaults;
               data from a seeded torch.Generator) rendered forward only
@@ -28,7 +33,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               (2,500 tiles) and on the synthetic rects of the CPU tests
               (tests/torch_kernel_inputs.py: full-grid, empty, inverted,
               edge-ending and out-of-grid rects, one chunk, tile 16 on a
-              non-square grid).
+              non-square grid) and on grids past one block's shared memory
+              (256 x 256, counted in bands of tile rows; 60,000 x 3, in
+              bands of a row's columns).  B3/B4 also on the blend's edge
+              inputs of the CPU tests (a tile with no chunk, one that
+              saturates in its first chunk, padding rows among real ones,
+              alpha clamped at 0.99, u and v past their clamps; CA/CV
+              14/0, 13/13, 16/16 and 3/4) at every tile the wrappers take
+              (32, 24, 16 and 8).
   5. parity   the small scene rendered forward and backward on the card
               (kernels) and on the CPU (plain versions): image and
               gradients agree.
@@ -40,7 +52,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               ms (CUDA events around each Python call: host time
               included) and its device_ms (torch.profiler's durations of
               the device operations over 20 back-to-back calls), and so
-              has its library yardstick.
+              has its library yardstick.  The blend rows add the kernel
+              each launch takes (registers, spills, blocks per SM) and,
+              with --parent, the other tree's kernels timed in turns
+              beside them; the work
+              counts give the warp visits of each warp patch (the shuffle
+              model of the backward).  B1 is timed on the 256 x 256 grid.
   Stage 2 (the deferred-PBR mode, bench_stage2.py's configuration: the
   bench scene upgrade_to_pbr'd, a synthetic radiance bake with S = 24
   incident samples per surfel made from a seeded generator, a 32x64 env):
@@ -56,13 +73,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  forward also on both of the eval render's lookups and on
                  the edge cases of the CPU tests (envs 16x32 and 32x64, M
                  37, 1,027 and 20,003, and each one shorter and not
-                 16-byte aligned).
+                 16-byte aligned); forward and backward on envs past one
+                 block's shared memory (128x256, 256x512: read in place,
+                 gradient added with atomics).  Then one stage-2 step with
+                 a 128x256 env
+                 (train.py --env_resolution 128): finite, the env
+                 gradient nonzero, B7 against its plain version on it.
   10. s2 parity  a small stage-2 scene rendered and stepped on the card and
-                 on the CPU: images, loss and gradients agree.
+                 on the CPU, with a 16x32 and a 128x256 env: images, loss
+                 and gradients agree.
   11. s2 timing  stage-2 train step and eval render medians; B7 with its
                  plain version, bound and grid_sample yardstick (the
-                 forward also on each eval lookup); B3/B4 at stage-2
-                 width.
+                 forward also on each eval lookup, and both on the env-128
+                 step); B3/B4 at stage-2 width.
   The radiance bake that starts stage 2 (the bench scene upgraded to PBR,
   S = 64 samples per surfel as the recipe's --sample_num 64, k_hits 16, a
   16x32 env: train_stage2's defaults):
@@ -101,7 +124,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   18. strip0 kernels B5/B6 against their plain versions on one strip-0
                  step's inputs, and against B3/B4 on the same inputs: B5's
                  output assembled to image layout equals B3's image within
-                 TOL_IMG with eff equal, B6's rows B4's within TOL_ROWS.
+                 TOL_IMG with eff equal, B6's rows B4's within TOL_ROWS,
+                 and bit-equal to them; also on the blend's edge inputs.
   19. strip0 s2  five stage-2 steps (S = 24) and an eval render at strip 0;
                  B5/B6 at CA 13 / CV 13 and B5 at 16 / 16 checked as in 18.
   20. sort       render_view_stage1 with the sort binner at the snug cap:
@@ -127,6 +151,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -559,6 +584,186 @@ def _compare_blend(calls, label):
     return err3, err4
 
 
+def blend_edge_calls(inputs, name, tile, dev):
+    """The blend's edge inputs (tests/torch_kernel_inputs.py) on the card
+    as captured calls of B3/B4 and of B5/B6: the backward's eff, logT and
+    meta from the plain forward, its cotangents from the inputs."""
+    import torch
+
+    from svgir_tpu_torch.ops import blend_pallas as BP
+    from svgir_tpu_torch.ops import blend_pallas_strip as BS
+
+    d = inputs.blend_edge_inputs(name, tile=tile)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in d.items()
+         if hasattr(v, "shape")}
+    kw = {k: d[k] for k in ("ca", "cv", "grid_x", "grid_y", "tile",
+                            "chunk")}
+    nch = d["ca"] + d["cv"]
+    lay = dict(grid_x=d["grid_x"], grid_y=d["grid_y"], tile=tile)
+    a = (t["slab"], t["tile_start"], t["tile_count"])
+    with torch.no_grad():
+        img, eff, _ = BS.blend_forward_plain(*a, **kw)
+        out, _ = BP.blend_forward_plain(*a, **kw)
+    g_out = torch.cat([BP.to_tiles(t["g_img"][:nch + 1], **lay),
+                       torch.zeros_like(out[:, :2])], 1).contiguous()
+    return {
+        "blend_forward": (a, kw),
+        "blend_backward": ((t["slab"], t["tile_start"], eff, t["g_img"],
+                            img[nch].contiguous(), t["g_wsum"]), kw),
+        "blend_forward_tiles": (a, kw),
+        "blend_backward_tiles": ((t["slab"], t["tile_start"], g_out,
+                                  out[:, nch:].contiguous(), t["g_wsum"]),
+                                 kw)}
+
+
+_PTXAS_KERNEL = re.compile(r"svgir_blend_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)E")
+
+
+def ptxas_blend(text):
+    """Registers and spills of each blend instantiation in ``ptxas -v``
+    output: {(direction, template arguments): {...}}, the arguments as
+    mangled (ints and bools in order: for this tree MAXA, MAXV, EXACT,
+    PPT, the backward's IB, ASYNC, TILES, then the backward's own)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            m = _PTXAS_KERNEL.search(line)
+            cur = None
+            if m:
+                args = tuple(int(x) for x in re.findall(r"L[ib](\d+)E", m[2]))
+                cur = ("forward" if m[1] == "fwd" else "backward", args)
+                out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    return out
+
+
+def blend_build(table, direction, ca, cv, tile, chunk, tiles=False):
+    """The kernel a blend launch takes (its compiled widths, pixels per
+    thread, instances per round, blocks per SM, threads, shared memory)
+    with its registers and spills from the build log."""
+    from svgir_tpu_torch.kernels import blend as K
+    info = K.kernel_info(direction, ca=ca, cv=cv, tile=tile, chunk=chunk)
+    at = 6 if direction == "backward" else 5       # TILES among the args
+    for widths in ((ca, cv, 1), (16, 0, 0), (32, 16, 0)):
+        for (d, args), v in table.items():
+            if d == direction and args[:3] == widths and \
+                    args[3] == info["ppt"] and args[at] == int(tiles):
+                return {**info, "compiled_widths": f"{widths[0]}/{widths[1]}"
+                        + ("" if widths[2] else " (generic)"), **v}
+    raise AssertionError(f"no {direction} blend instantiation in the build "
+                         f"log for {ca}/{cv}, tile {tile}")
+
+
+def parent_blend(parent_dir):
+    """The blend wrappers of another checkout (``parent_dir`` holds its
+    ``svgir_tpu_torch``), imported from there with its own build module,
+    which builds its kernels in ``parent_dir``: this tree's modules are set
+    aside while the other's load, then put back.  Calls go through the
+    other tree's own wrappers, so an interface that differs raises."""
+    import importlib
+    import os
+
+    def ours():
+        return {k: v for k, v in sys.modules.items()
+                if k == "svgir_tpu_torch" or k.startswith("svgir_tpu_torch.")}
+    mine = ours()
+    for k in mine:
+        del sys.modules[k]
+    root = os.path.abspath(parent_dir)
+    sys.path.insert(0, root)
+    try:
+        mod = importlib.import_module("svgir_tpu_torch.kernels.blend")
+        bld = importlib.import_module("svgir_tpu_torch.kernels.build")
+    finally:
+        sys.path.remove(root)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+    if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"--parent {parent_dir}: imported {mod.__file__}")
+    bld.build()
+    log_path = bld.BUILD_DIR / "build.log"
+    return {"label": os.path.basename(os.path.normpath(parent_dir)),
+            "blend_forward": mod.blend_forward,
+            "blend_backward": mod.blend_backward,
+            "blend_forward_tiles": mod.blend_forward_tiles,
+            "blend_backward_tiles": mod.blend_backward_tiles,
+            "ptxas": log_path.read_text() if log_path.exists() else ""}
+
+
+def compare_parent(parent, calls, label, card, tiles=False):
+    """Another tree's blend kernels (``parent_blend``; B3/B4, or B5/B6 with
+    ``tiles``) against this tree's on the captured inputs (held to each
+    other at the kernel tolerances), then both timed in turns (other, this,
+    this, other): per call and on the device.  Returns {"forward": {...},
+    "backward": {...}}."""
+    import torch
+
+    from svgir_tpu_torch.kernels import blend as K
+    from svgir_tpu_torch.ops import blend_pallas as BP
+
+    fwd, bwd = ("blend_forward_tiles", "blend_backward_tiles") if tiles \
+        else ("blend_forward", "blend_backward")
+    a, kw = calls[fwd]
+    nch = kw["ca"] + kw["cv"]
+    lay = dict(grid_x=kw["grid_x"], grid_y=kw["grid_y"], tile=kw["tile"])
+    mine = {"blend_forward": K.blend_forward,
+            "blend_backward": K.blend_backward,
+            "blend_forward_tiles": K.blend_forward_tiles,
+            "blend_backward_tiles": K.blend_backward_tiles}
+    runs = {"forward": (lambda: parent[fwd](*a, **kw),
+                        lambda: mine[fwd](*a, **kw))}
+    with torch.no_grad():
+        po, ko = parent[fwd](*a, **kw), mine[fwd](*a, **kw)
+        torch.cuda.synchronize()
+        if tiles:
+            pi, ki = (BP.to_image(o[0][:, :nch + 2], **lay) for o in (po, ko))
+            same_eff = torch.equal(po[0][:, nch + 2], ko[0][:, nch + 2])
+        else:
+            pi, ki, same_eff = po[0], ko[0], torch.equal(po[1], ko[1])
+        if not same_eff:
+            raise AssertionError(f"{fwd} [{label}]: chunks processed differ "
+                                 "from the parent's")
+        check_image(ki, pi, nch, f"{fwd} against the parent's [{label}]")
+        if bwd in calls:
+            b, bkw = calls[bwd]
+            check_rows(mine[bwd](*b, **bkw), parent[bwd](*b, **bkw),
+                       kw["ca"], f"{bwd} against the parent's [{label}]")
+            runs["backward"] = (lambda: parent[bwd](*b, **bkw),
+                                lambda: mine[bwd](*b, **bkw))
+        out = {}
+        for direction, (old, new) in runs.items():
+            dev = [device_ms(f)[0] for f in (old, new, new, old)]
+            call = [cuda_ms(f, reps=20) for f in (old, new, new, old)]
+            out[direction] = {
+                "parent_device_ms": (dev[0] + dev[3]) / 2,
+                "device_ms": (dev[1] + dev[2]) / 2,
+                "parent_ms": (call[0] + call[3]) / 2,
+                "ms": (call[1] + call[2]) / 2, "device_turns": dev,
+                "call_turns": call}
+            o = out[direction]
+            log(f"[parent {parent['label']}] {label}: "
+                f"{direction}{' (tiles)' if tiles else ''}"
+                f": device {o['device_ms']:.4f} ms (parent "
+                f"{o['parent_device_ms']:.4f}), per call {o['ms']:.4f} ms "
+                f"(parent {o['parent_ms']:.4f}); in turns parent/this/this/"
+                f"parent: device " + "/".join(f"{x:.4f}" for x in dev)
+                + ", per call " + "/".join(f"{x:.4f}" for x in call)
+                + f"; card: {card}")
+    return out
+
+
 # Float operations the blend needs per (pixel, instance) pair, by what the
 # pair needs (an exp, log1p or division counts as one; a multiply-add as
 # two; each nonzero term of a sum over the tile's pixels as one add):
@@ -811,6 +1016,25 @@ def compare_env(calls, label):
     return ef, eb
 
 
+def compare_env_backward(u, v, g, h, w, label):
+    """B7 backward kernel vs plain on queries u, v and cotangents g into an
+    h x w env: within TOL_ENV_BWD of the largest |d_env|; returns the max
+    absolute error."""
+    import torch
+
+    from svgir_tpu_torch.kernels import env_lookup as K
+    from svgir_tpu_torch.ops import env_lookup_pallas as P
+
+    with torch.no_grad():
+        kb = K.env_lookup_backward(u, v, g, h=h, w=w)
+        pb = P.env_lookup_backward_plain(u, v, g, h=h, w=w)
+        torch.cuda.synchronize()
+    eb = float((kb - pb).abs().max())
+    if eb > TOL_ENV_BWD * max(float(pb.abs().max()), 1e-30):
+        raise AssertionError(f"B7 [{label}] backward differs by {eb}")
+    return eb
+
+
 # Float operations of B7 per query: each of the two coordinates' taps
 # (floor, two clamps of the floor, subtract, two clamps of the fraction,
 # convert, compare-select: 8), the two complements (2); per channel the
@@ -865,10 +1089,10 @@ def library_env_backward(calls):
         gout, envt, grid, 0, 0, True, [True, False])
 
 
-def small_stage2(device, n=2000, res=96, samples=8, seed=3):
+def small_stage2(device, n=2000, res=96, samples=8, seed=3, env_h=16):
     """A small stage-2 scene on ``device``, made on the CPU from a seeded
     generator: surfels on a sphere facing a close camera, random PBR
-    parameters, a synthetic bake and a 16x32 env."""
+    parameters, a synthetic bake and an env_h x 2 env_h env."""
     import dataclasses
 
     import torch
@@ -883,7 +1107,7 @@ def small_stage2(device, n=2000, res=96, samples=8, seed=3):
                                normals=dirs, capacity=n,
                                rotation_init="normal", device="cpu")
     state, bake, env = stage2_inputs(state, "cpu", samples=samples,
-                                     env_h=16, seed=seed)
+                                     env_h=env_h, seed=seed)
     p = state["params"]
     p["opacity"] = torch.randn(n, 1, generator=g) + 0.5
     p["base_color"] = 0.5 * torch.randn(n, 12, generator=g)
@@ -906,7 +1130,7 @@ def small_stage2(device, n=2000, res=96, samples=8, seed=3):
         {"env": to(env["params"]["env"])}, cam
 
 
-def run_small_stage2(device):
+def run_small_stage2(device, env_h=16):
     """The small stage-2 scene's eval images, train-mode loss and
     gradients (every parameter group and the env) on ``device``."""
     import torch
@@ -914,7 +1138,7 @@ def run_small_stage2(device):
     from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
     from svgir_tpu_torch.render.svgss import render_svgss, render_view_svgss
 
-    state, bake, env, cam = small_stage2(device)
+    state, bake, env, cam = small_stage2(device, env_h=env_h)
     cfg = RasterConfig(max_instances=1 << 18)
     bg = torch.zeros(3, device=device)
     with torch.no_grad():
@@ -1412,10 +1636,13 @@ def compare_tiles(calls, label):
             raise AssertionError(f"B5 [{label}] chunks processed differ from "
                                  "B3's eff")
         x_img, x_lt, _ = check_image(ki, bi, nch, f"B5 vs B3 [{label}]")
+        if not torch.equal(ki, bi) or (kws is not None and
+                                       not torch.equal(kws, bws)):
+            raise AssertionError(f"B5 [{label}] is not bit-equal to B3")
         msg = (f"[kernels] {label}: B5 max|err| img {e_img:.3g} logT "
                f"{e_lt:.3g} wsum(rel) {err_w:.3g}, n_contrib mismatches "
                f"{nc_bad}; assembled against B3: img {x_img:.3g} logT "
-               f"{x_lt:.3g}, eff equal")
+               f"{x_lt:.3g}, eff equal, bit-equal")
         err5 = max(e_img, e_lt, err_w)
         if "blend_backward_tiles" not in calls:      # a forward-only render
             log(msg)
@@ -1431,6 +1658,8 @@ def compare_tiles(calls, label):
         torch.cuda.synchronize()
     err6 = check_rows(kd, pd, ca, f"B6 [{label}]")
     x6 = check_rows(kd, d4, ca, f"B6 vs B4 [{label}]")
+    if not torch.equal(kd, d4):
+        raise AssertionError(f"B6 [{label}] is not bit-equal to B4")
     log(msg + f"; B6 max|err| {err6:.3g}, against B4 {x6:.3g}")
     return err5, err6
 
@@ -1449,7 +1678,7 @@ def check_launches(launches, label, *, at_least=(), none=()):
 
 
 def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
-              profile_dir=None):
+              edge_calls, ptx, parents, profile_dir=None):
     """Phases 17-23; returns the kernels JSON entries of B5, B6 and B9.
     ``step8`` is the strip-8 stage-1 step with its arguments, ``s2`` the
     stage-2 inputs with the strip-8 stage-2 step and its arguments."""
@@ -1510,6 +1739,8 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
     if any(k in c0 for k in strip_kernels):
         raise AssertionError("the strip-0 step called the image-layout blend")
     e5, e6 = compare_tiles(c0, "strip 0, bench step")
+    for (name, tile), ec in edge_calls.items():
+        compare_tiles(ec, f"edge inputs {name}, tile {tile}")
 
     # ---- 19. stage 2 at strip 0: five S = 24 steps and an eval render ----
     s2_state, bake, env0, step2_8, s2_args8 = s2
@@ -1782,8 +2013,68 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
         log(f"[tiles timing] {name}: " + fmt_times(t, "F.pad / slice copy")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; {lc} launches on its "
             f"path; card: {card}")
+    for calls, label, suffix in ((c0, "strip 0, stage 1", ""),
+                                 (cap19.calls, "strip 0, stage-2 step",
+                                  "_stage2"),
+                                 (cap19e.calls, "strip 0, stage-2 eval",
+                                  "_stage2_eval")):
+        kw = calls[fw][1]
+        geo = dict(ca=kw["ca"], cv=kw["cv"], tile=kw["tile"],
+                   chunk=kw["chunk"], tiles=True)
+        cp = {p["label"]: compare_parent(p, calls, label, card, tiles=True)
+              for p in parents}
+        for entry in report:
+            for direction, name in (("forward", fw + suffix),
+                                    ("backward", bw + suffix)):
+                if entry["name"] == name:
+                    entry["build"] = blend_build(ptx, direction, **geo)
+                    parent_times = {k: v[direction] for k, v in cp.items()
+                                    if direction in v}
+                    if parent_times:
+                        entry["parent"] = parent_times
     log(f"[tiles] phases 17-23: {time.time() - t_tiles:.1f} s")
     return report
+
+
+def blend_extras(report, calls, label, ptx, parents, card, names=None):
+    """Adds to the blend entries of ``report`` (B3 and B4 on ``calls``) the
+    kernel each launch takes with its registers and spills and, with
+    --parent, each other tree's kernels timed in turns beside them
+    ({label: times} under "parent")."""
+    a, kw = calls["blend_forward"]
+    geo = dict(ca=kw["ca"], cv=kw["cv"], tile=kw["tile"], chunk=kw["chunk"])
+    names = names or {"forward": "blend_forward",
+                      "backward": "blend_backward"}
+    if "blend_backward" not in calls:
+        names = {k: v for k, v in names.items() if k == "forward"}
+    cp = {p["label"]: compare_parent(p, calls, label, card) for p in parents}
+    for entry in report:
+        for direction, name in names.items():
+            if entry["name"] == name:
+                entry["build"] = blend_build(ptx, direction, **geo)
+                if cp:
+                    entry["parent"] = {k: v[direction] for k, v in cp.items()}
+                log(f"[build] {name}: {entry['build']}")
+
+
+def log_warp_visits(work, kw, label):
+    """The shuffle model of the blend backward on these inputs: the (warp,
+    real row) visits where some pixel of the warp passes the footprint
+    test, for each warp patch, and the warp shuffles they cost: the old
+    layout (32 x 1 patches, 5 shuffles per row) against the new one (16
+    per group of 16 rows)."""
+    ca, cv = kw["ca"], kw["cv"]
+    rows_old = 12 + ca + 4 * cv
+    rows_new = (12 if cv else 6) + ca + 4 * cv
+    v = work["warp_visits"]
+    old = v["32x1"] * 5 * rows_old
+    log(f"[work] {label}: warp visits with a pixel past the footprint test "
+        f"of {work['warp_visit_total']['32x1']} (32 x 1 patches): "
+        + ", ".join(f"{k} {n}" for k, n in v.items())
+        + f"; backward shuffles, old layout {old} ("
+        f"{v['32x1']} x 5 x {rows_old}), new: "
+        + ", ".join(f"{k} {n * -(-rows_new // 16) * 16}"
+                    for k, n in v.items() if k != "32x1"))
 
 
 def main() -> int:
@@ -1825,11 +2116,21 @@ def main() -> int:
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")
-    for line in (build.BUILD_DIR / "build.log").read_text().splitlines() \
-            if (build.BUILD_DIR / "build.log").exists() else []:
+    build_log = (build.BUILD_DIR / "build.log").read_text() \
+        if (build.BUILD_DIR / "build.log").exists() else ""
+    for line in build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "Function properties",
                                    "==")):
             log("[ptxas] " + line.strip())
+    ptx = ptxas_blend(build_log)
+    for (direction, args), v in sorted(ptx.items()):
+        log(f"[ptxas] blend {direction} <{', '.join(map(str, args))}>: {v}")
+    parents = [parent_blend(sys.argv[i + 1])
+               for i, a in enumerate(sys.argv[1:-1], 1) if a == "--parent"]
+    for p in parents:
+        for (direction, args), v in sorted(ptxas_blend(p["ptxas"]).items()):
+            log(f"[ptxas] {p['label']}'s blend {direction} "
+                f"<{', '.join(map(str, args))}>: {v}")
 
     # ---- 2. render (eval path) ----------------------------------------
     state, cam = bench_scene(dev)
@@ -1915,8 +2216,26 @@ def main() -> int:
         done.append(compare_counts(
             [torch.from_numpy(r).to(dev) for r in rects],
             dict(grid_x=gx, grid_y=gy), f"synthetic {name}"))
+    for gx, gy in ((256, 256), (60_000, 3)):
+        # past a block's shared memory: counted in bands of tile rows (256 x
+        # 256: tile 16 over 4,096 x 4,096) or of a row's columns (60,000 x 3)
+        done.append(compare_counts(
+            [torch.from_numpy(r).to(dev)
+             for r in inputs.wide_grid_rects(gx, gy)],
+            dict(grid_x=gx, grid_y=gy), f"wide grid {gx} x {gy}"))
     log("[kernels] B1 equal to its plain version on " + "; ".join(done))
     err3, err4 = compare_blend(calls, "bench")
+    # the blend's edge inputs at every exact width and a generic one, at
+    # every tile the wrappers take (32 is the main path's; at 24 and 8 the
+    # stage-1 backward's 4-pixel lane patches do not fit, so it takes the
+    # generic kernel)
+    edge_calls, err3e, err4e = {}, 0.0, 0.0
+    for tile in (32, 24, 16, 8):
+        for name in inputs.BLEND_EDGE_CASES:
+            ec = blend_edge_calls(inputs, name, tile, dev)
+            edge_calls[(name, tile)] = ec
+            e3x, e4x = compare_blend(ec, f"edge inputs {name}, tile {tile}")
+            err3e, err4e = max(err3e, e3x), max(err4e, e4x)
 
     sc_dev, cam_dev = small_scene(dev)
     with Capture() as cap_small:
@@ -1931,7 +2250,7 @@ def main() -> int:
                              "chunks, early exit and g_wsum")
     compare_binning(cap_small.calls)
     e3s, e4s = compare_blend(cap_small.calls, "small CV=2")
-    err3, err4 = max(err3, e3s), max(err4, e4s)
+    err3, err4 = max(err3, e3s, err3e), max(err4, e4s, err4e)
 
     # ---- 5. parity: card (kernels) vs CPU (plain versions) -------------
     sc_cpu, cam_cpu = small_scene("cpu")
@@ -2013,6 +2332,24 @@ def main() -> int:
         log(f"[timing] {name}: " + fmt_times(t, "bincount + cumsums")
             + f", bound {bnd[name][0]:.4f} ms by {bnd[name][1]}{extra}; "
             f"card: {card}")
+    blend_extras(report, calls, "stage 1", ptx, parents, card)
+    log_warp_visits(wk, kw3, "stage 1")
+    # B1 on a grid past a block's shared memory (counted in bands; no main
+    # path runs such a grid, so 0 launches)
+    rw = [torch.from_numpy(r).to(dev) for r in inputs.wide_grid_rects(256, 256)]
+    kkw = dict(grid_x=256, grid_y=256, gauss_chunk=256)
+    t = timings(lambda: KB.counts(*rw, **kkw),
+                lambda: BP.counts_plain(*rw, **kkw))
+    nsw, tw = rw[0].numel(), 256 * 256
+    bw = (16 * nsw + 4 * tw + 4 * (nsw // 256) * tw) / HBM_BYTES_S * 1e3
+    report.append({
+        "name": "binning_counts_wide_grid", "route": "cuda",
+        "source": sources["binning_counts"],
+        "replaces": replaces["binning_counts"], "launches": 0,
+        "max_abs_err": 0.0, **t, "bound_ms": bw, "bound_by": "bytes"})
+    log(f"[timing] binning_counts on a 256 x 256 grid ({nsw} rects, in "
+        f"bands): " + fmt_times(t) + f", bound {bw:.4f} ms by bytes; card: "
+        f"{card}")
 
     def render_once(c):
         with torch.no_grad():
@@ -2135,35 +2472,79 @@ def main() -> int:
         f"({', '.join(str(a[1].numel()) for a, _ in evals)} queries): "
         f"max|err| {max(e7fe):.3g}; on the edge cases (16x32 and 32x64, "
         f"M 37, 1,027, 20,003 and one less, unaligned): {e7f_edge:.3g}")
+    # envs past a block's shared memory: read in place, gradient added
+    # with atomics
+    e7_wide = [0.0, 0.0]
+    for h, w in ((128, 256), (256, 512)):
+        env, u, v, g = (torch.from_numpy(x).to(dev)
+                        for x in inputs.env_lookup_inputs(h, w, 3, 20_003))
+        for uu, vv, gg, tag in ((u, v, g, ""), (u[1:], v[1:],
+                                                g[1:].contiguous(),
+                                                ", unaligned")):
+            lab = f"env {h}x{w}, M={uu.numel()}{tag}"
+            e7_wide[0] = max(e7_wide[0], compare_env_forward((env, uu, vv),
+                                                             lab))
+            e7_wide[1] = max(e7_wide[1], compare_env_backward(uu, vv, gg, h,
+                                                              w, lab))
+    log(f"[kernels] B7 on envs past shared memory (128x256, 256x512; M "
+        f"20,003 and one less, unaligned): forward max|err| "
+        f"{e7_wide[0]:.3g}, backward {e7_wide[1]:.3g}")
     compare_binning(c2)
     e3s2, e4s2 = compare_blend(c2, "stage-2 step CA=13 CV=13")
     e3s2e, _ = compare_blend(cap_s2_render.calls, "stage-2 eval CA=16 CV=16")
 
-    # ---- 10. stage-2 parity: card vs CPU --------------------------------
-    ev_d, r_d, g_d = run_small_stage2(dev)
-    ev_c, r_c, g_c = run_small_stage2("cpu")
-    for k in ("render", "pbr", "base_color", "roughness", "direct",
-              "indirect", "pbr_env", "render_env", "opacity"):
-        f = 2 if k in ("direct", "indirect") else 1
-        e = float((ev_d[k].cpu() - ev_c[k]).abs().max())
-        if e > f * TOL_S2_IMG:
-            raise AssertionError(f"s2 parity: {k} differs by {e}")
-    e = float(((ev_d["depth"].cpu() - ev_c["depth"]).abs()
-               / ev_c["depth"].abs().clamp(min=1e-6)).max())
-    if e > TOL_S2_DEPTH:
-        raise AssertionError(f"s2 parity: depth differs by {e} (relative)")
-    el = abs(r_d["loss"].item() - r_c["loss"].item())
-    if el > 1e-5 * max(1.0, abs(r_c["loss"].item())):
-        raise AssertionError(f"s2 parity: loss differs by {el}")
-    if sorted(g_d) != sorted(g_c):
-        raise AssertionError("s2 parity: different groups got gradients")
-    worst = max((max_err_rel(g_d[k].cpu(), g_c[k]), k) for k in g_c)
-    if worst[0] > TOL_S2_GRAD:
-        raise AssertionError(f"s2 parity: d{worst[1]} differs by {worst[0]} "
-                             "of its largest magnitude")
-    log(f"[s2 parity] small stage-2 scene: card == CPU (images "
-        f"{TOL_S2_IMG}, depth {TOL_S2_DEPTH} relative, loss within {el:.3g},"
-        f" gradients within {worst[0]:.3g} of max, worst d{worst[1]})")
+    # ---- 9b. a stage-2 step with a 128 x 256 env (train.py's
+    # --env_resolution 128, the reference's default): B7 past shared memory
+    s2_128, bake128, env128 = stage2_inputs(state, dev, env_h=128)
+    st128 = {**s2_128, "stats": state["stats"]}
+    s2_args128 = (st128, optim.adam_init(st128["params"]), env128, bake128,
+                  cam, 100.0, 1e-5, opt.radiance_lr)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Capture() as cap128:
+        _, _, env128b, tb128 = step2(*s2_args128)
+    torch.cuda.synchronize()
+    l128 = kernels.launches()
+    if not math.isfinite(float(tb128["loss"])) or bool(tb128["overflow"]):
+        raise AssertionError("stage-2 step, env 128: bad step")
+    if not bool(torch.isfinite(env128b["params"]["env"]).all()) or \
+            not bool((env128b["opt"]["m"]["env"] != 0).any()):
+        raise AssertionError("stage-2 step, env 128: the env got no finite "
+                             "gradient")
+    check_launches(l128, "stage-2 step, env 128", at_least=(
+        ("env_lookup_forward", 1), ("env_lookup_backward", 1),
+        ("blend_forward", 1), ("blend_backward", 1)))
+    e7f128, e7b128 = compare_env(cap128.calls, "stage-2 step, env 128x256")
+    log(f"[s2 env 128] loss {float(tb128['loss']):.6f}, launches {l128}")
+
+    # ---- 10. stage-2 parity: card vs CPU (16 x 32 and 128 x 256 envs) ---
+    for env_h in (16, 128):
+        ev_d, r_d, g_d = run_small_stage2(dev, env_h)
+        ev_c, r_c, g_c = run_small_stage2("cpu", env_h)
+        for k in ("render", "pbr", "base_color", "roughness", "direct",
+                  "indirect", "pbr_env", "render_env", "opacity"):
+            f = 2 if k in ("direct", "indirect") else 1
+            e = float((ev_d[k].cpu() - ev_c[k]).abs().max())
+            if e > f * TOL_S2_IMG:
+                raise AssertionError(f"s2 parity: {k} differs by {e}")
+        e = float(((ev_d["depth"].cpu() - ev_c["depth"]).abs()
+                   / ev_c["depth"].abs().clamp(min=1e-6)).max())
+        if e > TOL_S2_DEPTH:
+            raise AssertionError(f"s2 parity: depth differs by {e} "
+                                 "(relative)")
+        el = abs(r_d["loss"].item() - r_c["loss"].item())
+        if el > 1e-5 * max(1.0, abs(r_c["loss"].item())):
+            raise AssertionError(f"s2 parity: loss differs by {el}")
+        if sorted(g_d) != sorted(g_c):
+            raise AssertionError("s2 parity: different groups got gradients")
+        worst = max((max_err_rel(g_d[k].cpu(), g_c[k]), k) for k in g_c)
+        if worst[0] > TOL_S2_GRAD:
+            raise AssertionError(f"s2 parity: d{worst[1]} differs by "
+                                 f"{worst[0]} of its largest magnitude")
+        log(f"[s2 parity] small stage-2 scene, env {env_h}x{2 * env_h}: "
+            f"card == CPU (images {TOL_S2_IMG}, depth {TOL_S2_DEPTH} "
+            f"relative, loss within {el:.3g}, gradients within "
+            f"{worst[0]:.3g} of max, worst d{worst[1]})")
 
     # ---- 11. stage-2 timing ---------------------------------------------
     step2_ms = host_ms(lambda: step2(*s2_args), reps=10)
@@ -2208,6 +2589,23 @@ def main() -> int:
             replaces["blend_forward"], sources["blend_forward"],
             s2_render_launches, e3s2e, bnd2e["blend_forward"], None),
     }
+    # B7 on the env-128 step's lookups (the env read in place, the
+    # gradient added with atomics)
+    fa128, _ = cap128.calls["env_lookup_forward"]
+    ba128, bkw128 = cap128.calls["env_lookup_backward"]
+    for name, kfn, pfn, rep_, err, direction, lfn in (
+            ("env_lookup_forward_stage2_env128",
+             lambda: KE.env_lookup_forward(*fa128),
+             lambda: EP.env_lookup_forward_plain(*fa128),
+             "svgir_tpu/ops/env_lookup_pallas.py:63", e7f128,
+             "env_lookup_forward", library_env_forward(fa128)),
+            ("env_lookup_backward_stage2_env128",
+             lambda: KE.env_lookup_backward(*ba128, **bkw128),
+             lambda: EP.env_lookup_backward_plain(*ba128, **bkw128),
+             "svgir_tpu/ops/env_lookup_pallas.py:76", e7b128,
+             "env_lookup_backward", library_env_backward(cap128.calls))):
+        timed2[name] = (kfn, pfn, rep_, "svgir_tpu_torch/csrc/env_lookup.cu",
+                        l128, err, env_bounds(fa128)[direction], lfn)
     # B7's forward on each of the eval render's lookups (1.2M bake
     # directions and 640,000 camera rays)
     for i, (a, _) in enumerate(evals):
@@ -2228,7 +2626,13 @@ def main() -> int:
             "bound_ms": bd[0], "bound_by": bd[1]})
         log(f"[s2 timing] {name}: " + fmt_times(t, "grid_sample")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; card: {card}")
+    blend_extras(report, c2, "stage-2 step", ptx, parents, card,
+                 {"forward": "blend_forward_stage2",
+                  "backward": "blend_backward_stage2"})
+    blend_extras(report, cap_s2_render.calls, "stage-2 eval", ptx, parents,
+                 card, {"forward": "blend_forward_stage2_eval"})
     wk2 = bnd2["blend_work"]
+    log_warp_visits(wk2, kw3s, "stage 2")
     log(f"[s2 timing] blend work on the stage-2 step's inputs: {wk2['rows']} "
         f"real rows, {wk2['pairs']} pairs, {wk2['ok']} pass the footprint "
         f"test, {wk2['gated']} blend; {fa[1].numel()} env queries per step")
@@ -2244,7 +2648,8 @@ def main() -> int:
     report.extend(run_tiles(
         state, cam, opt, cfg, bg, card, dev,
         step8=(step, (state, ost0, cam, 1.0, 1.6e-4)),
-        s2=(s2_state, bake, env0, step2, s2_args), profile_dir=out_dir))
+        s2=(s2_state, bake, env0, step2, s2_args), edge_calls=edge_calls,
+        ptx=ptx, parents=parents, profile_dir=out_dir))
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

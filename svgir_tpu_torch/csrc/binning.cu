@@ -25,8 +25,13 @@
 //   totals are scanned in shared memory, and each warp rewrites its share
 //   as the exclusive prefix from its offset, four chunks at a time; the
 //   last warp's end is counts[t].  Integer sums: exact in any order.
-//   The difference array must fit one block's shared memory (a grid of
-//   up to ~58,000 tiles); the wrapper refuses larger grids.
+//   The difference array lives in one block's shared memory, which holds
+//   a grid of up to ~58,000 tiles.  A larger grid is counted in bands: a
+//   block takes one chunk and one band of whole tile rows (or, where even
+//   two tile rows do not fit, of a row's columns) whose difference array
+//   fits, and clamps each rect to its band; pass 1 then runs as a grid of
+//   chunks x bands.  The counts stay exact, and a grid that fits is one
+//   band, the whole grid, as before.
 // B2 svgir_instances replaces binning_pallas.py compute_instances
 // (_inst_kernel): for every instance slot j of the Gaussian-major
 // enumeration, its Gaussian g (binary search over the exclusive offsets),
@@ -41,24 +46,31 @@
 #include "blend_common.cuh"
 
 static const int kCountThreads = 256;  // pass 1: threads per chunk block
+static const int kSmemOptInMax = 232448;  // bytes of shared memory a block may use
 static const int kScanWarps = 16;      // pass 2: warps splitting the chunks
 
-// Pass 1: per_chunk[c, t] = rects of chunk c (blockIdx.x) covering tile t.
+// Pass 1: per_chunk[c, t] = rects of chunk c (blockIdx.x) covering tile t,
+// for the tiles of band blockIdx.y: band_h tile rows x band_w tile columns
+// (the bands tile the grid row-major; edge bands are smaller).
 __global__ void __launch_bounds__(kCountThreads)
 svgir_counts_chunk_kernel(const int* __restrict__ x0, const int* __restrict__ y0,
                           const int* __restrict__ x1, const int* __restrict__ y1,
-                          int gauss_chunk, int grid_x, int grid_y,
+                          int gauss_chunk, int grid_x, int grid_y, int band_w, int band_h,
                           int* __restrict__ per_chunk) {
-  extern __shared__ int s_d[];  // (grid_y + 1) x (grid_x + 1) difference array
-  const int wd = grid_x + 1;
-  const int nd = (grid_y + 1) * wd;
+  extern __shared__ int s_d[];  // (bh + 1) x (bw + 1) difference array
+  const int nbx = (grid_x + band_w - 1) / band_w;
+  const int bx0 = (blockIdx.y % nbx) * band_w, by0 = (blockIdx.y / nbx) * band_h;
+  const int bw = min(band_w, grid_x - bx0), bh = min(band_h, grid_y - by0);
+  const int wd = bw + 1;
+  const int nd = (bh + 1) * wd;
   for (int i = threadIdx.x; i < nd; i += blockDim.x) s_d[i] = 0;
   __syncthreads();
   const size_t g0 = (size_t)blockIdx.x * gauss_chunk;
   for (int i = threadIdx.x; i < gauss_chunk; i += blockDim.x) {
     const size_t g = g0 + i;
-    const int a = min(max(x0[g], 0), grid_x), b = min(max(x1[g], 0), grid_x);
-    const int c = min(max(y0[g], 0), grid_y), d = min(max(y1[g], 0), grid_y);
+    // the rect clamped to the band, in band coordinates
+    const int a = min(max(x0[g] - bx0, 0), bw), b = min(max(x1[g] - bx0, 0), bw);
+    const int c = min(max(y0[g] - by0, 0), bh), d = min(max(y1[g] - by0, 0), bh);
     if (a < b && c < d) {
       atomicAdd(s_d + c * wd + a, 1);
       atomicAdd(s_d + c * wd + b, -1);
@@ -67,30 +79,29 @@ svgir_counts_chunk_kernel(const int* __restrict__ x0, const int* __restrict__ y0
     }
   }
   __syncthreads();
-  // inclusive prefix sums along x, then along y, over the grid_y x grid_x
-  // tiles (the array's last row and column are never read back)
-  for (int r = threadIdx.x; r < grid_y; r += blockDim.x) {
+  // inclusive prefix sums along x, then along y, over the bh x bw tiles
+  // (the array's last row and column are never read back)
+  for (int r = threadIdx.x; r < bh; r += blockDim.x) {
     int* row = s_d + r * wd;
     int acc = 0;
-    for (int x = 0; x < grid_x; ++x) {
+    for (int x = 0; x < bw; ++x) {
       acc += row[x];
       row[x] = acc;
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < grid_x; x += blockDim.x) {
+  for (int x = threadIdx.x; x < bw; x += blockDim.x) {
     int acc = 0;
-    for (int r = 0; r < grid_y; ++r) {
+    for (int r = 0; r < bh; ++r) {
       acc += s_d[r * wd + x];
       s_d[r * wd + x] = acc;
     }
   }
   __syncthreads();
-  const int num_tiles = grid_x * grid_y;
-  int* dst = per_chunk + (size_t)blockIdx.x * num_tiles;
-  for (int t = threadIdx.x; t < num_tiles; t += blockDim.x) {
-    const int ty = t / grid_x;
-    dst[t] = s_d[ty * wd + (t - ty * grid_x)];
+  int* dst = per_chunk + (size_t)blockIdx.x * grid_x * grid_y;
+  for (int t = threadIdx.x; t < bw * bh; t += blockDim.x) {
+    const int ty = t / bw, tx = t - ty * bw;
+    dst[(size_t)(by0 + ty) * grid_x + bx0 + tx] = s_d[ty * wd + tx];
   }
 }
 
@@ -167,21 +178,33 @@ __global__ void svgir_instances_kernel(const int* __restrict__ x0, const int* __
 }
 
 // B1: counts [grid_x * grid_y] and carry [nchunks, grid_x * grid_y], two
-// launches.  The difference array takes (grid_x+1)*(grid_y+1)*4 bytes of
-// shared memory (refused, as an invalid value, past what a block may opt
-// in to).
+// launches.  The difference array of a band takes (bw+1)*(bh+1)*4 bytes of
+// shared memory: the whole grid where that fits what a block may opt in
+// to, else bands of whole tile rows, else bands of columns of one row.
 extern "C" int svgir_counts(const int* x0, const int* y0, const int* x1, const int* y1,
                             int nchunks, int gauss_chunk, int grid_x, int grid_y,
                             int* counts, int* carry, void* stream) {
   if (grid_x < 1 || grid_y < 1 || gauss_chunk < 1 || nchunks < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(grid_x + 1) * (grid_y + 1) * sizeof(int);
+  const long long cap = kSmemOptInMax / sizeof(int);  // difference-array entries
+  int band_w = grid_x, band_h = grid_y;
+  if ((long long)(grid_x + 1) * (grid_y + 1) > cap) {
+    band_h = (int)(cap / (grid_x + 1)) - 1;
+    if (band_h < 1) {
+      band_h = 1;
+      band_w = (int)(cap / 2) - 1;
+    }
+  }
+  const long long nbands =
+      (long long)((grid_x + band_w - 1) / band_w) * ((grid_y + band_h - 1) / band_h);
+  if (nbands > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(band_w + 1) * (band_h + 1) * sizeof(int);
   cudaError_t err = svgir_smem_opt_in(svgir_counts_chunk_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (nchunks > 0) {
-    svgir_counts_chunk_kernel<<<nchunks, kCountThreads, smem, s>>>(x0, y0, x1, y1, gauss_chunk,
-                                                                   grid_x, grid_y, carry);
+    svgir_counts_chunk_kernel<<<dim3(nchunks, (unsigned)nbands), kCountThreads, smem, s>>>(
+        x0, y0, x1, y1, gauss_chunk, grid_x, grid_y, band_w, band_h, carry);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -8,8 +8,7 @@ import ctypes
 import torch
 
 from svgir_tpu_torch.kernels import LAUNCHES
-from svgir_tpu_torch.kernels.build import (SMEM_OPT_IN_MAX, check, entry,
-                                           require, stream)
+from svgir_tpu_torch.kernels.build import check, entry, require, stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (x0, y0, x1, y1, nchunks, gauss_chunk, grid_x, grid_y, counts, carry,
@@ -23,16 +22,15 @@ _INSTANCES = (_P,) * 8 + (_I,) * 5 + (_P,) * 3
 def counts(x0, y0, x1, y1, *, grid_x: int, grid_y: int, gauss_chunk: int):
     """Depth-sorted rects [Ns] int32 (Ns a multiple of ``gauss_chunk``) ->
     (counts [T] int32, carry [Ns/gauss_chunk, T] int32).  Two device
-    kernels: per-chunk counts into ``carry``, then its scan over chunks."""
+    kernels: per-chunk counts into ``carry`` (by bands of the grid where
+    the grid's difference array exceeds a block's shared memory), then its
+    scan over chunks."""
     ns = x0.shape[0]
     if ns % gauss_chunk:
         raise ValueError(f"Ns={ns} is not a multiple of {gauss_chunk}")
-    nbytes = 4 * (grid_x + 1) * (grid_y + 1)
-    if grid_x < 1 or grid_y < 1 or nbytes > SMEM_OPT_IN_MAX:
-        raise ValueError(
-            f"a {grid_x} x {grid_y} tile grid: the counts kernel takes grids "
-            f"whose (grid_x+1)*(grid_y+1)*4 bytes of shared memory, here "
-            f"{nbytes}, fit the {SMEM_OPT_IN_MAX} a block may opt in to")
+    if grid_x < 1 or grid_y < 1:
+        raise ValueError(f"a {grid_x} x {grid_y} tile grid: the counts "
+                         "kernel needs at least one tile")
     for name, a in (("x0", x0), ("y0", y0), ("x1", x1), ("y1", y1)):
         require(name, a, torch.int32, (ns,))
     num_tiles = grid_x * grid_y

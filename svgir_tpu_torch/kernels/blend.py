@@ -6,8 +6,10 @@ tile-major ones ``[T, CA+CV+3, tile**2]``.
 
 The wrappers check the slab layout, the compiled channel bounds and the
 tile size.  The C entries refuse, as an invalid value, what depends on their
-own constants: a chunk that is not a multiple of the backward's reduction
-round, or shared memory past what a block may opt in to."""
+own constants: a chunk that is not a multiple of 4 (the backward) or shared
+memory past what a block may opt in to.  Each width launches the one kernel
+compiled for it (``csrc/blend_forward.cu``, ``csrc/blend_backward.cu``);
+``kernel_info`` describes it."""
 
 from __future__ import annotations
 
@@ -36,6 +38,34 @@ _FORWARD_TILES = (_P,) * 3 + (_I,) * 7 + (_P,) * 3
 _BACKWARD_TILES = (_P,) * 5 + (_I,) * 7 + (_P,) * 2
 
 
+# (kr, ca, cv, tile, chunk, with_wsum, info[6])
+_FORWARD_INFO = (_I,) * 6 + (_P,)
+# (kr, ca, cv, tile, chunk, info[6])
+_BACKWARD_INFO = (_I,) * 5 + (_P,)
+
+
+def kernel_info(direction: str, *, ca: int, cv: int, tile: int, chunk: int,
+                emit_wsum: bool = True) -> dict:
+    """The kernel a ``direction`` ("forward" or "backward") launch takes at
+    these widths, tile and chunk: its resident blocks per SM on this
+    device, threads per block, pixels per thread, shared memory in bytes,
+    (the backward) instances per round of cross-warp sums, and whether it
+    stages chunks asynchronously.  Launches nothing."""
+    info = (ctypes.c_int * 6)()
+    kr = NG + ca + 4 * cv
+    if direction == "forward":
+        rc = entry("blend_forward", "svgir_blend_forward_info",
+                   _FORWARD_INFO)(kr, ca, cv, tile, chunk, int(emit_wsum),
+                                  info)
+    else:
+        rc = entry("blend_backward", "svgir_blend_backward_info",
+                   _BACKWARD_INFO)(kr, ca, cv, tile, chunk, info)
+    check(rc, f"svgir_blend_{direction}_info")
+    return dict(blocks_per_sm=info[0], threads=info[1], ppt=info[2],
+                smem_bytes=info[3], rounds=info[4],
+                asynchronous=bool(info[5]))
+
+
 def _check_layout(slab, ca: int, cv: int, tile: int, chunk: int) -> None:
     if slab.shape[1] != NG + ca + 4 * cv:
         raise ValueError(f"slab has {slab.shape[1]} columns, expected "
@@ -45,7 +75,8 @@ def _check_layout(slab, ca: int, cv: int, tile: int, chunk: int) -> None:
                          "bounds (ca <= 32, cv <= 16)")
     if tile * tile > 1024 or (tile * tile) % 32:
         raise ValueError(f"tile={tile}: tile**2 must be a multiple of 32 and "
-                         "at most 1024 (one thread per pixel)")
+                         "at most 1024 (the kernels' warps cover 8-pixel-wide "
+                         "patches, a block at most 1024 pixels)")
 
 
 def blend_forward(slab, tile_start, tile_count, *, ca: int, cv: int,

@@ -1,9 +1,11 @@
 """Wrappers of the env-map lookup kernel B7 (``svgir_env_lookup_forward``,
 ``svgir_env_lookup_backward`` in ``csrc/env_lookup.cu``).
 
-Both stage the whole env (or its gradient) in one block's shared memory,
-so an env whose ``H*W*C*4`` bytes exceed what a block may opt in to is
-refused here with a clear error, before anything is built or launched.
+Both stage the whole env (or its gradient) in each block's shared memory
+where its ``H*W*C*4`` bytes fit what a block may opt in to.  A larger env
+(H >= 99 at W = 2H, C = 3: the reference's default H = 128 among them) is
+read in place by the forward, and the backward adds into a zero-filled
+``d_env`` in device memory with float atomics.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ _BACKWARD = (_P,) * 3 + (_L,) + (_I,) * 4 + (_P,) * 3
 
 # (threads per block, queries per thread, blocks per SM at most) of the
 # forward and the backward (csrc/env_lookup.cu): each block stages the env
-# (or sums into its own copy of d_env) once
+# (or sums into its own copy of d_env) once, where it fits
 FWD_GRID = (512, 4, 2)
 BWD_GRID = (1024, 1, 2)
 
@@ -33,11 +35,12 @@ def _check_env(h: int, w: int, c: int) -> None:
     if h < 2 or w < 2 or c < 1:
         raise ValueError(f"env of shape ({h}, {w}, {c}): the bilinear "
                          "lookup needs H >= 2, W >= 2 and C >= 1")
-    nbytes = h * w * c * 4
-    if nbytes > SMEM_OPT_IN_MAX:
-        raise ValueError(
-            f"env of shape ({h}, {w}, {c}) needs {nbytes} bytes of shared "
-            f"memory, more than the {SMEM_OPT_IN_MAX} a block may opt in to")
+
+
+def staged(h: int, w: int, c: int) -> bool:
+    """Whether the kernels stage the env in shared memory (else the
+    forward reads it in place and the backward adds with atomics)."""
+    return h * w * c * 4 <= SMEM_OPT_IN_MAX
 
 
 def _nblocks(t: torch.Tensor, m: int, grid) -> int:
@@ -71,11 +74,17 @@ def env_lookup_backward(u, v, g, *, h: int, w: int):
     require("v", v, torch.float32, (m,))
     require("g", g, torch.float32, (m, c))
     nb = _nblocks(g, m, BWD_GRID)
-    partial = torch.empty(nb, h * w * c, dtype=torch.float32, device=g.device)
-    d_env = torch.empty(h, w, c, dtype=torch.float32, device=g.device)
+    if staged(h, w, c):
+        partial = torch.empty(nb, h * w * c, dtype=torch.float32,
+                              device=g.device)
+        d_env = torch.empty(h, w, c, dtype=torch.float32, device=g.device)
+    else:   # no scratch: the queries add into d_env
+        partial = None
+        d_env = torch.zeros(h, w, c, dtype=torch.float32, device=g.device)
     rc = entry("env_lookup", "svgir_env_lookup_backward", _BACKWARD)(
         u.data_ptr(), v.data_ptr(), g.data_ptr(), m, h, w, c, nb,
-        partial.data_ptr(), d_env.data_ptr(), stream(g))
+        partial.data_ptr() if partial is not None else None,
+        d_env.data_ptr(), stream(g))
     check(rc, "svgir_env_lookup_backward")
     LAUNCHES["env_lookup_backward"] += 1
     return d_env

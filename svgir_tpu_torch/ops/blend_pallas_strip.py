@@ -30,6 +30,16 @@ from svgir_tpu_torch.kernels import blend as K
 from svgir_tpu_torch.ops.common import (ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NG,
                                         on_cuda)
 
+# With PyTorch 2.13 on an AVX-512 CPU, the first torch.exp of a process on a
+# CPU tensor large enough to be split over threads can give one thread's
+# share other values (in about one process in five: 1/8 of a 196,608-value
+# tensor, up to 1,772 ulp off); every later call gives the same values.
+# Such a difference moves the plain versions below (the CPU path, and the
+# oracle of the tests) across the transmittance gate.  One call on a few
+# values, made by this thread alone when the module loads, settles it
+# before any split call of this module.
+torch.exp(torch.zeros(8))
+
 
 def _chunk_math(s, px, py):
     """Per-(tile, pixel, instance) quantities of one chunk.
@@ -61,6 +71,23 @@ def _chunk_math(s, px, py):
 def _vertex_weights(m):
     u, v = m["u"], m["v"]
     return ((1 - u) * (1 - v), u * (1 - v), (1 - u) * v, u * v)
+
+
+# warp patches (width, height in pixels) whose visits ``work`` counts: one
+# tile row of 32 pixels, and the lane blocks of the CUDA kernels at 1, 2 and
+# 4 pixels per thread (csrc/blend_common.cuh, svgir_pixel)
+_PATCHES = ((32, 1), (8, 4), (8, 8), (16, 8))
+
+
+def _running_sum(start, terms, reverse: bool = False):
+    """[G, P, C+1] running sums of ``start`` [G, P] and ``terms`` [G, P, C]:
+    entry k is start plus terms 0..k-1 (``reverse``: start plus terms
+    k..C-1, so entry C is start and entry 0 adds them all).  One sequential
+    scan with one rounding per entry, its order fixed by the data's order,
+    not by how a library splits a reduction."""
+    seq = torch.flip(terms, [-1]) if reverse else terms
+    out = torch.cumsum(torch.cat([start[..., None], seq], -1), -1)
+    return torch.flip(out, [-1]) if reverse else out
 
 
 def _tile_groups(num_tiles: int, pix: int, chunk: int):
@@ -99,8 +126,12 @@ def blend_forward_plain(slab, tile_start, tile_count, *, ca: int, cv: int,
     ``work``, when given, receives the work these inputs need, counted over
     the chunks the tiles process: ``rows`` (real slab rows; padding rows are
     all zero), ``pairs`` ((pixel, real row) pairs, each needing the
-    footprint test), ``ok`` (pairs that pass it and enter the logT chain)
-    and ``gated`` (ok pairs above the transmittance threshold, which blend).
+    footprint test), ``ok`` (pairs that pass it and enter the logT chain),
+    ``gated`` (ok pairs above the transmittance threshold, which blend),
+    and, for each warp patch of ``_PATCHES`` that tiles the tile (keys
+    "WxH"), ``warp_visits`` ((patch, real row) pairs with some pixel of the
+    patch past the footprint test: the visits a kernel whose warps cover
+    such patches cannot skip) out of ``warp_visit_total``.
     """
     dev = slab.device
     m = slab.shape[0]
@@ -112,7 +143,10 @@ def blend_forward_plain(slab, tile_start, tile_count, *, ca: int, cv: int,
     eff = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
     nch = (tile_count // chunk).long()
     lane = torch.arange(chunk, device=dev)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)  # see ``work``
+    patches = [(pw, ph) for pw, ph in _PATCHES
+               if tile % pw == 0 and tile % ph == 0]
+    counts = torch.zeros(3 + len(patches), dtype=torch.int64,
+                         device=dev)                   # see ``work``
     for tiles in _tile_groups(num_tiles, pix, chunk):
         ts = slice(tiles.start, tiles.stop)
         px, py = _pixel_coords(tiles, grid_x, tile, dev)
@@ -126,7 +160,11 @@ def blend_forward_plain(slab, tile_start, tile_count, *, ca: int, cv: int,
             s = slab_ext[rows]                                      # [G, C, KR]
             mth = _chunk_math(s, px, py)
             loga = mth["loga"]
-            logT_excl = logT[..., None] + (torch.cumsum(loga, -1) - loga)
+            # logT before each instance and, last, after the chunk: one
+            # running sum from the carried logT, so the gate and the carry
+            # come from the same additions, in instance order
+            chain = _running_sum(logT, loga)
+            logT_excl = chain[..., :-1]
             gate = mth["ok"] & (logT_excl >= LOG_T_EPS)
             w = torch.where(gate, mth["alpha"] * torch.exp(logT_excl),
                             torch.zeros_like(logT_excl))            # [G, P, C]
@@ -145,13 +183,21 @@ def blend_forward_plain(slab, tile_start, tile_count, *, ca: int, cv: int,
                 counts[0] += (s != 0).any(-1).sum()
                 counts[1] += mth["ok"].sum()
                 counts[2] += gate.sum()
-            logT = logT + loga.sum(-1)
+                for i, (pw, ph) in enumerate(patches):
+                    hit = mth["ok"].reshape(len(tiles), tile // ph, ph,
+                                            tile // pw, pw, chunk)
+                    counts[3 + i] += hit.any(4).any(2).sum()
+            logT = chain[..., -1]
             nc = nc + gate.sum(-1)
             eff[ts] += active.to(torch.int32)
         meta[0, ts], meta[1, ts] = logT, nc
     if work is not None:
-        real, ok, gated = (int(x) for x in counts)
+        real, ok, gated = (int(x) for x in counts[:3])
         work.update(rows=real, pairs=real * pix, ok=ok, gated=gated)
+        names = [f"{pw}x{ph}" for pw, ph in patches]
+        work["warp_visits"] = dict(zip(names, counts[3:].tolist()))
+        work["warp_visit_total"] = {
+            n: real * pix // (pw * ph) for n, (pw, ph) in zip(names, patches)}
     img = _to_image(torch.cat([acc, meta]), grid_x, grid_y, tile)
     return img, eff, (wsum[:m] if emit_wsum else None)
 
@@ -186,9 +232,10 @@ def blend_backward_plain(slab, tile_start, eff, g_img, logt_img, g_wsum, *,
             s = slab_ext[rows]                          # [G, C, KR]
             mth = _chunk_math(s, px, py)
             loga, alpha, ok = mth["loga"], mth["alpha"], mth["ok"]
-            suffix_incl = torch.flip(torch.cumsum(torch.flip(loga, [-1]), -1),
-                                     [-1])
-            logT_excl = logT[..., None] - suffix_incl
+            # the forward's chain run backwards from the chunk's final logT:
+            # entry i is logT before instance i (entry 0: before the chunk)
+            chain = _running_sum(logT, -loga, reverse=True)
+            logT_excl = chain[..., :-1]
             gate = ok & (logT_excl >= LOG_T_EPS)
             expT = torch.exp(logT_excl)
             zero = torch.zeros_like(expT)
@@ -221,8 +268,10 @@ def blend_backward_plain(slab, tile_start, eff, g_img, logt_img, g_wsum, *,
                                 * 0.5).sum(1)
 
             s_term = dw * w
-            d_loga = (torch.flip(torch.cumsum(torch.flip(s_term, [-1]), -1),
-                                 [-1]) - s_term) + suf[..., None]
+            # entry i + 1: g_logT plus the terms of the instances after i
+            # (entry 0, all of them: the carry)
+            suffix = _running_sum(suf, s_term, reverse=True)
+            d_loga = suffix[..., 1:]
             not_clamped = (alpha < ALPHA_MAX).float()
             d_alpha = torch.where(gate, dw * expT, zero) \
                 + d_loga * (-1.0 / (1.0 - alpha)) * ok.float()
@@ -253,8 +302,8 @@ def blend_backward_plain(slab, tile_start, eff, g_img, logt_img, g_wsum, *,
                      for vtx in range(4)], -1))
             d_ext[rows.reshape(-1)] = torch.cat(rows_out, -1).reshape(-1, kr)
 
-            logT = logT - loga.sum(-1)
-            suf = suf + s_term.sum(-1)
+            logT = chain[..., 0]
+            suf = suffix[..., 0]
     return d_ext[:m]
 
 

@@ -28,7 +28,8 @@ from svgir_tpu_torch.ops import binning as tbin
 from svgir_tpu_torch.ops import binning_pallas as tbp
 from svgir_tpu_torch.ops.preprocess import Preprocessed as TPrep
 
-from tests.torch_kernel_inputs import RECT_CASES, synthetic_rects
+from tests.torch_kernel_inputs import (RECT_CASES, synthetic_rects,
+                                       wide_grid_rects)
 
 GC = 256
 
@@ -106,6 +107,26 @@ def test_counts_plain_matches_pallas(case):
     assert int(ttot) == int(jtot)
     np.testing.assert_array_equal(tcarry.numpy(),
                                   np.asarray(jcarry)[:, :gx * gy])
+
+
+def test_counts_plain_on_a_grid_past_shared_memory():
+    """Tile 16 over 4,096 x 4,096 pixels: a 256 x 256 grid whose difference
+    array (257 * 257 * 4 = 264,196 bytes) exceeds a block's shared memory,
+    so the CUDA kernel counts it in bands.  Counts and carry of 512 rects
+    (full-grid, out-of-grid and small ones) equal a direct count."""
+    gx = gy = 256
+    assert 4 * (gx + 1) * (gy + 1) > 232_448
+    rects = wide_grid_rects(gx, gy)
+    x0, y0, x1, y1 = rects
+    tc, tcarry = tbp.counts_plain(*(torch.as_tensor(a) for a in rects),
+                                  grid_x=gx, grid_y=gy, gauss_chunk=GC)
+    tx, ty = np.arange(gx * gy) % gx, np.arange(gx * gy) // gx
+    cover = ((tx >= x0[:, None]) & (tx < x1[:, None])
+             & (ty >= y0[:, None]) & (ty < y1[:, None]))
+    np.testing.assert_array_equal(tc.numpy(), cover.sum(0))
+    per_chunk = cover.reshape(-1, GC, gx * gy).sum(1)
+    np.testing.assert_array_equal(tcarry.numpy(),
+                                  np.cumsum(per_chunk, 0) - per_chunk)
 
 
 @pytest.mark.parametrize("name", sorted(RECT_CASES))

@@ -100,6 +100,24 @@ def test_plain_backward_matches_pallas_and_xla(case):
     _rel(d, case["denv_x"], 1e-5)
 
 
+def test_plain_matches_pallas_on_an_env_past_shared_memory():
+    """A 128 x 256 x 3 env (the reference's default H = 128; 393,216 bytes,
+    past a block's shared memory, so the CUDA kernels read it in place and
+    add the gradient with atomics): the plain forward and backward against
+    the Pallas kernel, at the tolerances above."""
+    env, u, v, g = _inputs(128, 256, 3)
+    assert env.nbytes > 232_448
+    out = P.env_lookup_forward_plain(_t(env), _t(u), _t(v)).numpy()
+    out_p = np.asarray(bilinear_lookup_pallas(jnp.asarray(env), u, v, True))
+    np.testing.assert_allclose(out, out_p, atol=1e-6)
+    d = P.env_lookup_backward_plain(_t(u), _t(v), _t(g), h=128,
+                                    w=256).numpy()
+    denv_p = np.asarray(jax.grad(
+        lambda e: jnp.sum(bilinear_lookup_pallas(e, u, v, True) * g))(
+            jnp.asarray(env)))
+    _rel(d, denv_p, 1e-5)
+
+
 def test_autograd_reaches_the_env_only(case):
     env = _t(case["env"]).requires_grad_(True)
     u = _t(case["u"]).requires_grad_(True)
@@ -181,9 +199,11 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         K.env_lookup_forward(torch.zeros(16, 32, 3), u, u)
     with pytest.raises(ValueError, match="CUDA"):
         K.env_lookup_backward(u, u, torch.zeros(8, 3), h=16, w=32)
-    with pytest.raises(ValueError, match="opt in"):
+    # an env past a block's shared memory is taken (read in place, added
+    # with atomics): the call goes on to the device check
+    with pytest.raises(ValueError, match="CUDA"):
         K.env_lookup_forward(torch.zeros(128, 256, 3), u, u)
-    with pytest.raises(ValueError, match="opt in"):
+    with pytest.raises(ValueError, match="CUDA"):
         K.env_lookup_backward(u, u, torch.zeros(8, 3), h=128, w=256)
     with pytest.raises(ValueError, match="H >= 2"):
         K.env_lookup_forward(torch.zeros(1, 32, 3), u, u)

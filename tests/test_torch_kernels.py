@@ -100,18 +100,20 @@ REFUSALS = {
                                     grid_y=4, gauss_chunk=256), "multiple"),
     "counts_empty_grid": (lambda: KB.counts(*_rects(), grid_x=0, grid_y=4,
                                             gauss_chunk=256), "tile grid"),
+    # grids and envs past a block's shared memory are taken (by bands, in
+    # place): the call goes on to the device check
     "counts_grid_past_smem": (lambda: KB.counts(
-        *_rects(), grid_x=300, grid_y=200, gauss_chunk=256), "opt in"),
+        *_rects(), grid_x=300, grid_y=200, gauss_chunk=256), "CUDA"),
     "env_forward_cpu": (lambda: KE.env_lookup_forward(
         torch.zeros(16, 32, 3), _u8, _u8), "CUDA"),
     "env_forward_past_smem": (lambda: KE.env_lookup_forward(
-        torch.zeros(128, 256, 3), _u8, _u8), "opt in"),
+        torch.zeros(128, 256, 3), _u8, _u8), "CUDA"),
     "env_forward_one_row": (lambda: KE.env_lookup_forward(
         torch.zeros(1, 32, 3), _u8, _u8), "H >= 2"),
     "env_backward_cpu": (lambda: KE.env_lookup_backward(
         _u8, _u8, torch.zeros(8, 3), h=16, w=32), "CUDA"),
     "env_backward_past_smem": (lambda: KE.env_lookup_backward(
-        _u8, _u8, torch.zeros(8, 3), h=128, w=256), "opt in"),
+        _u8, _u8, torch.zeros(8, 3), h=128, w=256), "CUDA"),
     "env_backward_no_channel": (lambda: KE.env_lookup_backward(
         _u8, _u8, torch.zeros(8, 0), h=16, w=32), "C >= 1"),
     "march_cpu": (lambda: KM.march(*_march_args()[0], **_march_args()[1]),
