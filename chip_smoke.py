@@ -5,13 +5,15 @@
     python3 chip_smoke.py --profile DIR   # also write torch.profiler
                                           # tables of stage-1, stage-2 and
                                           # S = 64 steps and a bake to DIR
-    python3 chip_smoke.py --parent DIR    # also time the blend kernels of
-                                          # another checkout DIR (its own
-                                          # wrappers, built there) in turns
-                                          # beside this tree's; repeatable
+    python3 chip_smoke.py --parent DIR    # also time the blend, B2 and B9
+                                          # kernels of another checkout DIR
+                                          # (its own wrappers, built there)
+                                          # in turns beside this tree's;
+                                          # repeatable
 
 Phases (any failure ends the run with a non-zero exit and no result line):
-  1. build    compile csrc/*.cu with nvcc (in parallel) and load them;
+  1. build    compile csrc/*.cu with nvcc (in parallel) and load them
+              (launch_floor.cu is an empty kernel, timed in 6);
               print the card's name and power limit, and the registers,
               stack and spills of every blend instantiation (ptxas -v).
   2. render   the bench scene (800x800 camera, 50,000 surfels on a ball
@@ -35,7 +37,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               edge-ending and out-of-grid rects, one chunk, tile 16 on a
               non-square grid) and on grids past one block's shared memory
               (256 x 256, counted in bands of tile rows; 60,000 x 3, in
-              bands of a row's columns).  B3/B4 also on the blend's edge
+              bands of a row's columns).  B2 also at tile 16 and on the
+              edge cases of the CPU tests (instance_inputs: a chunk whose
+              256 rects all cover one tile, one of empty and inverted
+              rects, a last chunk ending in padding, m past and below
+              total_raw, a 50 x 50 grid, the two wide grids, walked in
+              bands) and on the synthetic rects clipped to their grids.
+              B3/B4 also on the blend's edge
               inputs of the CPU tests (a tile with no chunk, one that
               saturates in its first chunk, padding rows among real ones,
               alpha clamped at 0.99, u and v past their clamps; CA/CV
@@ -57,7 +65,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               with --parent, the other tree's kernels timed in turns
               beside them; the work
               counts give the warp visits of each warp patch (the shuffle
-              model of the backward).  B1 is timed on the 256 x 256 grid.
+              model of the backward).  B1 is timed on the 256 x 256 grid
+              with its yardstick; with --parent, B2 in turns with the
+              other tree's.  The launch floor: an empty kernel's device
+              time (one block of 32 threads, and B2's grid), beside the
+              bounds below it (launch_floor_device_ms in every row).
   Stage 2 (the deferred-PBR mode, bench_stage2.py's configuration: the
   bench scene upgrade_to_pbr'd, a synthetic radiance bake with S = 24
   incident samples per surfel made from a seeded generator, a 32x64 env):
@@ -87,14 +99,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  forward also on each eval lookup, and both on the env-128
                  step); B3/B4 at stage-2 width.
   The radiance bake that starts stage 2 (the bench scene upgraded to PBR,
-  S = 64 samples per surfel as the recipe's --sample_num 64, k_hits 16, a
-  16x32 env: train_stage2's defaults):
+  S = 64 samples per surfel and a 32x64 env as the recipe's --sample_num 64
+  --env_resolution 32 (script/run_tensoir.sh), k_hits 16; the
+  configuration's default env is 16x32, and H = 128 only
+  direct_light_map_init's default argument):
   12. bake+train train_stage2(bake=None) for three steps: the bake over
                  the 50k surfels (grid march on B8), then the steps; launch
                  counts reset just before and read just after; B8 and the
                  step's kernels launched; exhausted share, bake seconds,
                  finite loss, moments and parameters; one S = 64 step's
-                 time and peak memory.  The bench surfels face outward, so
+                 time and peak memory; B7 forward and backward on that
+                 step's 3.2M lookups against their plain versions and
+                 timed (with grid_sample, bound and launches).  The bench
+                 surfels face outward, so
                  no ray of this bake hits a front face: the same surfels
                  turned inward are baked too (bake_radiance, S = 64, k 16;
                  most rays hit and lists fill), with one S = 64 step on
@@ -137,11 +154,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  oracle render_dense on the card.
   22. cols       B9 (pad_cols / slice_cols) against F.pad and the slice
                  copy, bitwise, at M = the cap rounded up to 1024, stage-1
-                 KR -> 128 -> KR.  B9 has no caller on any path.
+                 KR -> 128 -> KR; the slice also at kout 1, 127 and 13, at
+                 M = 1024 and on an input off 8-byte alignment.  B9 has no
+                 caller on any path.
   23. timing     strip-0 against strip-8 stage-1 steps in turns, the
                  renders (counting strip 8 / strip 0, sort) and the stage-2
                  step and eval render at both; B5/B6/B9 per launch with
-                 their plain versions, bounds and (B9) F.pad / slice copy.
+                 their plain versions, bounds and (B9) F.pad / slice copy;
+                 with --parent, B9 in turns with the other tree's.
 
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
@@ -316,6 +336,43 @@ def fmt_times(t, lib_name=""):
                if t["library_ms"] is not None else "") + ")")
 
 
+def in_turns(old, new):
+    """Another tree's kernel call ``old`` and this tree's ``new``, timed in
+    turns (old, new, new, old): on the device and per call."""
+    dev = [device_ms(f)[0] for f in (old, new, new, old)]
+    call = [cuda_ms(f, reps=20) for f in (old, new, new, old)]
+    return {"parent_device_ms": (dev[0] + dev[3]) / 2,
+            "device_ms": (dev[1] + dev[2]) / 2,
+            "parent_ms": (call[0] + call[3]) / 2,
+            "ms": (call[1] + call[2]) / 2, "device_turns": dev,
+            "call_turns": call}
+
+
+def log_turns(o, what, card):
+    log(f"[parent] {what}: device {o['device_ms']:.4f} ms (parent "
+        f"{o['parent_device_ms']:.4f}), per call {o['ms']:.4f} ms (parent "
+        f"{o['parent_ms']:.4f}); in turns parent/this/this/parent: device "
+        + "/".join(f"{x:.4f}" for x in o["device_turns"]) + ", per call "
+        + "/".join(f"{x:.4f}" for x in o["call_turns"]) + f"; card: {card}")
+
+
+def launch_floor(blocks=1, threads=32):
+    """One launch of the empty kernel of ``csrc/launch_floor.cu`` on
+    ``blocks`` x ``threads``: what any launch costs on the card."""
+    import ctypes
+
+    import torch
+
+    from svgir_tpu_torch.kernels import build
+    fn = build.entry("launch_floor", "svgir_empty",
+                     (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    s = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(fn(blocks, threads, s), "svgir_empty")
+    return launch
+
+
 def host_ms(fn, reps=10, warmup=2) -> float:
     """Median wall time of fn() in ms, each call ended by a synchronize."""
     import torch
@@ -475,22 +532,39 @@ def compare_counts(a, kw, label):
     return f"{label}: {kcar.shape[0]} chunks x {kc.numel()} tiles"
 
 
-def compare_binning(calls):
-    """B1, B2 kernel vs plain on the captured inputs: integer equality."""
+def compare_instances(a, kw, label, kernel=None):
+    """B2 kernel (this tree's, or ``kernel``) vs plain on the arguments
+    ``a``, ``kw``: slot and gid equal integer for integer."""
     import torch
 
     from svgir_tpu_torch.kernels import binning as K
     from svgir_tpu_torch.ops import binning_pallas as P
 
-    compare_counts(*calls["compute_counts"], "captured")
-    a2, kw2 = calls["compute_instances"]
-    ks, kg = K.instances(*a2, **kw2)
-    ps, pg = P.instances_plain(*a2, **kw2)
+    ks, kg = (kernel or K.instances)(*a, **kw)
+    ps, pg = P.instances_plain(*a, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(ks, ps) and torch.equal(kg, pg)):
         bad = int((ks != ps).sum() + (kg != pg).sum())
-        raise AssertionError(f"B2 instances kernel disagrees with its plain "
-                             f"version at {bad} entries")
+        raise AssertionError(f"B2 [{label}] instances kernel disagrees with "
+                             f"its plain version at {bad} entries")
+    return (f"{label}: {int(a[7])} instances of {kw['m']} slots, "
+            f"{a[6].shape[0]} chunks x {a[6].shape[1]} tiles")
+
+
+def instance_case(inp, dev):
+    """B2's arguments on ``dev`` from a dict of
+    ``tests/torch_kernel_inputs.instances_from_rects``."""
+    import torch
+    a = [torch.from_numpy(inp[k]).to(dev) for k in (
+        "x0", "y0", "x1", "y1", "offsets", "order", "table")]
+    a.append(torch.tensor(inp["total_raw"], dtype=torch.int32, device=dev))
+    return a, dict(m=inp["m"], grid_x=inp["grid_x"], gauss_chunk=256)
+
+
+def compare_binning(calls):
+    """B1, B2 kernel vs plain on the captured inputs: integer equality."""
+    compare_counts(*calls["compute_counts"], "captured")
+    compare_instances(*calls["compute_instances"], "captured")
 
 
 def compare_blend(calls, label):
@@ -665,9 +739,10 @@ def blend_build(table, direction, ca, cv, tile, chunk, tiles=False):
                          f"log for {ca}/{cv}, tile {tile}")
 
 
-def parent_blend(parent_dir):
-    """The blend wrappers of another checkout (``parent_dir`` holds its
-    ``svgir_tpu_torch``), imported from there with its own build module,
+def parent_kernels(parent_dir):
+    """The blend, binning and column-copy wrappers of another checkout
+    (``parent_dir`` holds its ``svgir_tpu_torch``), imported from there
+    with its own build module,
     which builds its kernels in ``parent_dir``: this tree's modules are set
     aside while the other's load, then put back.  Calls go through the
     other tree's own wrappers, so an interface that differs raises."""
@@ -684,6 +759,8 @@ def parent_blend(parent_dir):
     sys.path.insert(0, root)
     try:
         mod = importlib.import_module("svgir_tpu_torch.kernels.blend")
+        bin_ = importlib.import_module("svgir_tpu_torch.kernels.binning")
+        cols = importlib.import_module("svgir_tpu_torch.kernels.cols")
         bld = importlib.import_module("svgir_tpu_torch.kernels.build")
     finally:
         sys.path.remove(root)
@@ -699,11 +776,13 @@ def parent_blend(parent_dir):
             "blend_backward": mod.blend_backward,
             "blend_forward_tiles": mod.blend_forward_tiles,
             "blend_backward_tiles": mod.blend_backward_tiles,
+            "counts": bin_.counts, "instances": bin_.instances,
+            "pad_cols": cols.pad_cols, "slice_cols": cols.slice_cols,
             "ptxas": log_path.read_text() if log_path.exists() else ""}
 
 
 def compare_parent(parent, calls, label, card, tiles=False):
-    """Another tree's blend kernels (``parent_blend``; B3/B4, or B5/B6 with
+    """Another tree's blend kernels (``parent_kernels``; B3/B4, or B5/B6 with
     ``tiles``) against this tree's on the captured inputs (held to each
     other at the kernel tolerances), then both timed in turns (other, this,
     this, other): per call and on the device.  Returns {"forward": {...},
@@ -744,23 +823,9 @@ def compare_parent(parent, calls, label, card, tiles=False):
                                 lambda: mine[bwd](*b, **bkw))
         out = {}
         for direction, (old, new) in runs.items():
-            dev = [device_ms(f)[0] for f in (old, new, new, old)]
-            call = [cuda_ms(f, reps=20) for f in (old, new, new, old)]
-            out[direction] = {
-                "parent_device_ms": (dev[0] + dev[3]) / 2,
-                "device_ms": (dev[1] + dev[2]) / 2,
-                "parent_ms": (call[0] + call[3]) / 2,
-                "ms": (call[1] + call[2]) / 2, "device_turns": dev,
-                "call_turns": call}
-            o = out[direction]
-            log(f"[parent {parent['label']}] {label}: "
-                f"{direction}{' (tiles)' if tiles else ''}"
-                f": device {o['device_ms']:.4f} ms (parent "
-                f"{o['parent_device_ms']:.4f}), per call {o['ms']:.4f} ms "
-                f"(parent {o['parent_ms']:.4f}); in turns parent/this/this/"
-                f"parent: device " + "/".join(f"{x:.4f}" for x in dev)
-                + ", per call " + "/".join(f"{x:.4f}" for x in call)
-                + f"; card: {card}")
+            out[direction] = in_turns(old, new)
+            log_turns(out[direction], f"{parent['label']} {label}: "
+                      f"{direction}{' (tiles)' if tiles else ''}", card)
     return out
 
 
@@ -1165,7 +1230,8 @@ def run_small_stage2(device, env_h=16):
 # ---------------------------------------------------------------------------
 
 BAKE_SAMPLES = 64       # train_stage2's sample_num (--sample_num 64)
-BAKE_ENV_H = 16         # train_stage2's env_resolution
+BAKE_ENV_H = 32         # the recipe's --env_resolution 32 (train_stage2's
+                        # and the configuration's default is 16)
 # Float operations of B8 (csrc/march.cu), an exp or division counting one:
 # a candidate test (the plane hit, its local uv and ellipse metric, the
 # power's six products and sums, alpha and the eight acceptance tests with
@@ -1269,8 +1335,10 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
 
     from svgir_tpu_torch import kernels
     from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.kernels import env_lookup as KE
     from svgir_tpu_torch.models import gaussians as G
     from svgir_tpu_torch.models import radiance as RAD
+    from svgir_tpu_torch.ops import env_lookup_pallas as EP
     from svgir_tpu_torch.ops import grid_tracer as GT
     from svgir_tpu_torch.ops import march_pallas as MP
     from svgir_tpu_torch.ops import tracing as TR
@@ -1347,6 +1415,39 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
     if profile_dir:
         profile_step(lambda: step3(*s3_args), profile_dir,
                      "chip_smoke_profile_stage2_s64.txt")
+    # B7 at the recipe's shape: the S = 64 step's lookups on its env
+    with Capture() as cap64:
+        step3(*s3_args)
+    torch.cuda.synchronize()
+    c64 = cap64.calls
+    env_label = (f"S = {BAKE_SAMPLES} step, env {BAKE_ENV_H}x"
+                 f"{2 * BAKE_ENV_H}")
+    e7 = compare_env(c64, env_label)
+    fa64, _ = c64["env_lookup_forward"]
+    ba64, bkw64 = c64["env_lookup_backward"]
+    bnd64 = env_bounds(fa64)
+    b7_entries = []
+    for i, (name, kfn, pfn, lfn) in enumerate((
+            ("env_lookup_forward", lambda: KE.env_lookup_forward(*fa64),
+             lambda: EP.env_lookup_forward_plain(*fa64),
+             library_env_forward(fa64)),
+            ("env_lookup_backward",
+             lambda: KE.env_lookup_backward(*ba64, **bkw64),
+             lambda: EP.env_lookup_backward_plain(*ba64, **bkw64),
+             library_env_backward(c64)))):
+        with torch.no_grad():
+            t = timings(kfn, pfn, lfn)
+        bd = bnd64[name]
+        b7_entries.append({
+            "name": f"{name}_s64", "route": "cuda",
+            "source": "svgir_tpu_torch/csrc/env_lookup.cu",
+            "replaces": "svgir_tpu/ops/env_lookup_pallas.py:"
+            + ("63" if i == 0 else "76"), "launches": launches[name],
+            "max_abs_err": e7[i], **t, "bound_ms": bd[0], "bound_by": bd[1]})
+        log(f"[bake timing] {name} at the recipe's shape ({env_label}, "
+            f"{fa64[1].numel()} queries): " + fmt_times(t, "grid_sample")
+            + f", bound {bd[0]:.4f} ms by {bd[1]}; {launches[name]} "
+            f"launches in the bake and {steps} steps; card: {card}")
 
     # ---- the bench scene turned inward: a full-size bake whose rays hit --
     # The main path's surfels face outward, so none of its rays meets a
@@ -1581,7 +1682,7 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
     return [{"name": "march", **entry, "max_abs_err": err, **tb,
              "bound_ms": bms, "bound_by": by},
             {"name": "march_inward_bench", **entry, "max_abs_err": err_i,
-             **tb_i, "bound_ms": bms_i, "bound_by": by_i}]
+             **tb_i, "bound_ms": bms_i, "bound_by": by_i}] + b7_entries
 
 
 # ---------------------------------------------------------------------------
@@ -1739,6 +1840,7 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
     if any(k in c0 for k in strip_kernels):
         raise AssertionError("the strip-0 step called the image-layout blend")
     e5, e6 = compare_tiles(c0, "strip 0, bench step")
+    compare_binning(c0)
     for (name, tile), ec in edge_calls.items():
         compare_tiles(ec, f"edge inputs {name}, tile {tile}")
 
@@ -1933,8 +2035,25 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
         raise AssertionError("B9 differs from its plain versions")
     check_launches(kernels.launches(), "B9",
                    at_least=(("pad_cols", 1), ("slice_cols", 1)))
+    # the slice at its edges: kout 1, kin - 1, an odd kout (4-byte loads),
+    # M of one block, and an input 4 bytes off 8-byte alignment
+    kx = kp[:1024].contiguous()
+    off = torch.empty(1024 * 126 + 1, device=dev)[1:].view(1024, 126)
+    off.copy_(kp[:1024, :126])
+    for label, xx, ko in (("kout 1", kp, 1), ("kin - 1", kp, B9_KOUT - 1),
+                          ("odd kout 13", kp, 13), ("M = 1024", kx, kr),
+                          ("4 bytes off alignment", off, 64)):
+        got = KC.slice_cols(xx, ko)
+        if not torch.equal(got, BP.slice_cols_plain(xx, ko)):
+            raise AssertionError(f"B9 slice differs from its plain version "
+                                 f"({label}: {tuple(xx.shape)} -> {ko})")
+    for p in parents:
+        if not (torch.equal(p["pad_cols"](x9, B9_KOUT), kp) and
+                torch.equal(p["slice_cols"](kp, kr), ks)):
+            raise AssertionError(f"B9 differs from {p['label']}'s")
     log(f"[cols] B9 at M={m9}: pad {kr} -> {B9_KOUT} and slice back equal "
-        "to F.pad and the slice copy, bit for bit")
+        "to F.pad and the slice copy, bit for bit; the slice also at kout "
+        "1, 127 and 13, M = 1024 and on an input off 8-byte alignment")
 
     # ---- 23. timing --------------------------------------------------------
     step8_fn, step8_args = step8
@@ -2013,6 +2132,12 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
         log(f"[tiles timing] {name}: " + fmt_times(t, "F.pad / slice copy")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; {lc} launches on its "
             f"path; card: {card}")
+        if name in ("pad_cols", "slice_cols"):
+            for p in parents:
+                a = (x9, B9_KOUT) if name == "pad_cols" else (kp, kr)
+                o = in_turns(lambda p=p, a=a: p[name](*a), kfn)
+                report[-1].setdefault("parent", {})[p["label"]] = o
+                log_turns(o, f"{p['label']} {name}", card)
     for calls, label, suffix in ((c0, "strip 0, stage 1", ""),
                                  (cap19.calls, "strip 0, stage-2 step",
                                   "_stage2"),
@@ -2112,7 +2237,7 @@ def main() -> int:
     t0 = time.time()
     build.build()
     for stem in ("binning", "blend_forward", "blend_backward", "cols",
-                 "env_lookup", "march"):
+                 "env_lookup", "launch_floor", "march"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")
@@ -2125,7 +2250,7 @@ def main() -> int:
     ptx = ptxas_blend(build_log)
     for (direction, args), v in sorted(ptx.items()):
         log(f"[ptxas] blend {direction} <{', '.join(map(str, args))}>: {v}")
-    parents = [parent_blend(sys.argv[i + 1])
+    parents = [parent_kernels(sys.argv[i + 1])
                for i, a in enumerate(sys.argv[1:-1], 1) if a == "--parent"]
     for p in parents:
         for (direction, args), v in sorted(ptxas_blend(p["ptxas"]).items()):
@@ -2211,6 +2336,20 @@ def main() -> int:
                                   cfg=cfg16)
     done = [compare_counts(*cap16.calls["compute_counts"],
                            "bench scene, tile 16")]
+    done_b2 = [compare_instances(*cap16.calls["compute_instances"],
+                                 "bench scene, tile 16")]
+    # B2 at its edge cases (a chunk whose rects all cover one tile, one of
+    # empty and inverted rects, a last chunk ending in padding, m past and
+    # below total_raw, tile 16, the wide grids, walked in bands) and on
+    # B1's synthetic rects clipped to their grids
+    for name in inputs.INSTANCE_CASES:
+        done_b2.append(compare_instances(
+            *instance_case(inputs.instance_inputs(name), dev), name))
+    for name in inputs.RECT_CASES:
+        rects, (gx, gy) = inputs.synthetic_rects(name)
+        done_b2.append(compare_instances(*instance_case(
+            inputs.instances_from_rects(rects, gx, gy), dev),
+            f"synthetic {name}"))
     for name in inputs.RECT_CASES:
         rects, (gx, gy) = inputs.synthetic_rects(name)
         done.append(compare_counts(
@@ -2224,6 +2363,7 @@ def main() -> int:
              for r in inputs.wide_grid_rects(gx, gy)],
             dict(grid_x=gx, grid_y=gy), f"wide grid {gx} x {gy}"))
     log("[kernels] B1 equal to its plain version on " + "; ".join(done))
+    log("[kernels] B2 equal to its plain version on " + "; ".join(done_b2))
     err3, err4 = compare_blend(calls, "bench")
     # the blend's edge inputs at every exact width and a generic one, at
     # every tile the wrappers take (32 is the main path's; at 24 and 8 the
@@ -2334,12 +2474,38 @@ def main() -> int:
             f"card: {card}")
     blend_extras(report, calls, "stage 1", ptx, parents, card)
     log_warp_visits(wk, kw3, "stage 1")
+    # B2 against each --parent tree's, in turns, on the bench step's inputs
+    b2_entry = next(e for e in report if e["name"] == "binning_instances")
+    for p in parents:
+        compare_instances(a2, kw2, f"captured, {p['label']}'s kernel",
+                          kernel=p["instances"])
+        o = in_turns(lambda p=p: p["instances"](*a2, **kw2),
+                     lambda: KB.instances(*a2, **kw2))
+        b2_entry.setdefault("parent", {})[p["label"]] = o
+        log_turns(o, f"{p['label']} binning_instances", card)
+    # the launch floor: an empty kernel of one block of 32 threads, and of
+    # B2's grid on these inputs (a block per chunk, one per 2,048 slots)
+    b2_grid = a2[0].numel() // kw2["gauss_chunk"] + -(-kw2["m"] // 2048)
+    floor = {}
+    for label, fn in (("1 x 32", launch_floor()),
+                      (f"{b2_grid} x 512", launch_floor(b2_grid, 512))):
+        floor[label] = (device_ms(fn)[0], cuda_ms(fn, reps=20))
+        log(f"[timing] launch floor, empty kernel of {label} threads: "
+            f"{floor[label][0]:.4f} ms on the device, {floor[label][1]:.4f} "
+            f"ms per call; card: {card}")
+    floor_ms = floor["1 x 32"][0]
     # B1 on a grid past a block's shared memory (counted in bands; no main
     # path runs such a grid, so 0 launches)
     rw = [torch.from_numpy(r).to(dev) for r in inputs.wide_grid_rects(256, 256)]
     kkw = dict(grid_x=256, grid_y=256, gauss_chunk=256)
+    lib_w = library_counts_carry({"compute_counts": (rw, kkw)})
+    lc, lcar = lib_w()
+    kc, kcar = KB.counts(*rw, **kkw)
+    if not (torch.equal(lc, kc) and torch.equal(lcar, kcar)):
+        raise AssertionError("the B1 yardstick computes another function on "
+                             "the wide grid")
     t = timings(lambda: KB.counts(*rw, **kkw),
-                lambda: BP.counts_plain(*rw, **kkw))
+                lambda: BP.counts_plain(*rw, **kkw), lib_w)
     nsw, tw = rw[0].numel(), 256 * 256
     bw = (16 * nsw + 4 * tw + 4 * (nsw // 256) * tw) / HBM_BYTES_S * 1e3
     report.append({
@@ -2348,8 +2514,8 @@ def main() -> int:
         "replaces": replaces["binning_counts"], "launches": 0,
         "max_abs_err": 0.0, **t, "bound_ms": bw, "bound_by": "bytes"})
     log(f"[timing] binning_counts on a 256 x 256 grid ({nsw} rects, in "
-        f"bands): " + fmt_times(t) + f", bound {bw:.4f} ms by bytes; card: "
-        f"{card}")
+        f"bands): " + fmt_times(t, "bincount + cumsums") + f", bound "
+        f"{bw:.4f} ms by bytes; card: {card}")
 
     def render_once(c):
         with torch.no_grad():
@@ -2490,11 +2656,13 @@ def main() -> int:
         f"20,003 and one less, unaligned): forward max|err| "
         f"{e7_wide[0]:.3g}, backward {e7_wide[1]:.3g}")
     compare_binning(c2)
+    compare_binning(cap_s2_render.calls)
     e3s2, e4s2 = compare_blend(c2, "stage-2 step CA=13 CV=13")
     e3s2e, _ = compare_blend(cap_s2_render.calls, "stage-2 eval CA=16 CV=16")
 
-    # ---- 9b. a stage-2 step with a 128 x 256 env (train.py's
-    # --env_resolution 128, the reference's default): B7 past shared memory
+    # ---- 9b. a stage-2 step with a 128 x 256 env (train.py
+    # --env_resolution 128; H = 128 is direct_light_map_init's default
+    # argument, the configuration's default is 16): B7 past shared memory
     s2_128, bake128, env128 = stage2_inputs(state, dev, env_h=128)
     st128 = {**s2_128, "stats": state["stats"]}
     s2_args128 = (st128, optim.adam_init(st128["params"]), env128, bake128,
@@ -2657,6 +2825,8 @@ def main() -> int:
                      "chip_smoke_profile_stage2.txt")
     log(f"[done] {time.time() - t_start:.1f} s")
 
+    for entry in report:
+        entry["launch_floor_device_ms"] = floor_ms
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,20 +34,56 @@
 //   band, the whole grid, as before.
 // B2 svgir_instances replaces binning_pallas.py compute_instances
 // (_inst_kernel): for every instance slot j of the Gaussian-major
-// enumeration, its Gaussian g (binary search over the exclusive offsets),
-// its tile (y outer, x inner over g's rect) and its output slot
+// enumeration, its Gaussian g (the last with offsets[g] <= j), its tile
+// (y outer, x inner over g's rect) and its output slot
 //   slot = table[chunk(g), tile] + #{g' in [chunk_start(g), g) covering tile}
-// where table already holds carry + chunk-aligned tile starts.
-//   Bound: bytes (8 B written per instance, the Gaussian-side arrays read
-//   once); the in-chunk rank count is at most gauss_chunk-1 integer tests.
-//   Design: one thread per instance; neighbouring instances mostly share a
-//   Gaussian, so the rank loop's rect reads are broadcasts served by L1.
-//   Slots stay int32 throughout and the tile split uses integer division.
+// where table already holds carry + chunk-aligned tile starts; slot m and
+// gid -1 for every j in [total_raw, m).
+//   Bound: bytes (8 B written per slot, the Gaussian-side arrays read once,
+//   one table entry per instance): 0.9 us at the bench's 165,888 slots.
+//   The TPU kernel takes blocks of instances and finds each one's Gaussian
+//   and in-chunk rank by comparing it with a window of rects; one thread
+//   per instance doing the same here (a binary search over all offsets,
+//   then up to 255 rect tests) is O(instances x chunk) work.
+//   Design: one block per (Gaussian chunk, band of the grid), nothing
+//   searched in global memory, no rect tests.  The block loads its chunk's
+//   rects, clipped to the band, with each one's in-band instance count,
+//   and the band's part of the table into shared memory, and scans the
+//   counts (a chunk with none in the band ends there: on the bench 130 of
+//   196 chunks hold only culled Gaussians).  Walk 1 gives each Gaussian
+//   threads that take its clipped rect's tiles row by row and set bit
+//   (g mod 32) of each tile's word for g's group of 32 Gaussians (a
+//   shared-memory atomicOr: exact in any order); they also write each
+//   instance's (Gaussian, tile) into a map in shared memory.  A pass over
+//   the tiles then counts, per tile and group, the covering Gaussians of
+//   the earlier groups.  Walk 2 takes the map's instances, a thread each:
+//   rank = that count plus the set bits below g's in its group's word
+//   (popc), which is the number of earlier Gaussians of the chunk whose
+//   rect covers the tile, exactly; it writes slot and gid at j =
+//   offsets[g] + the tile's place in g's rect, consecutive instances at
+//   consecutive j.  The map holds 4,096 instances: a chunk with more is
+//   walked in windows, each window's map filled by the per-Gaussian loops.
+//   Timed on an H100 on the bench step, a first version that walked the
+//   instances in both walks, each finding its Gaussian by a binary search
+//   over the scanned counts and its tile by a division, ran 0.0102-0.0117
+//   ms; ranking by a loop over the earlier groups' words, 0.0079-0.0082.
+//   A tile takes its table entry, (gauss_chunk/32, rounded up to odd)
+//   words and gauss_chunk/32 two-byte counts of shared memory (56 B at
+//   gauss_chunk 256, the odd stride keeping neighbouring tiles off one
+//   bank); a grid past a block's shared memory is walked in bands of
+//   whole tile rows (or of a row's columns), as B1 counts it, each band a
+//   block of its own.  Extra blocks at the end of the launch fill
+//   [total_raw, m).  The rects must lie in the grid, as preprocess's
+//   clamped tile rects do.  Int32 throughout.
 #include "blend_common.cuh"
 
 static const int kCountThreads = 256;  // pass 1: threads per chunk block
 static const int kSmemOptInMax = 232448;  // bytes of shared memory a block may use
 static const int kScanWarps = 16;      // pass 2: warps splitting the chunks
+static const int kInstThreads = 512;   // B2: threads per (chunk, band) block
+static const int kInstTailPer = 4;     // B2: slots past total_raw per thread
+static const int kInstWindow = 4096;   // B2: instances mapped at a time
+static const int kInstTabRegs = 2;     // B2: table entries a thread prefetches
 
 // Pass 1: per_chunk[c, t] = rects of chunk c (blockIdx.x) covering tile t,
 // for the tiles of band blockIdx.y: band_h tile rows x band_w tile columns
@@ -140,41 +176,183 @@ svgir_counts_scan_kernel(int nchunks, int num_tiles, int* __restrict__ carry,
   if (wp == kScanWarps - 1) counts[t] = off;  // its share ends at nchunks
 }
 
-__global__ void svgir_instances_kernel(const int* __restrict__ x0, const int* __restrict__ y0,
-                                       const int* __restrict__ x1, const int* __restrict__ y1,
-                                       const int* __restrict__ offsets,
-                                       const int* __restrict__ order,
-                                       const int* __restrict__ table,
-                                       const int* __restrict__ total_raw, int ns, int m,
-                                       int gauss_chunk, int grid_x, int num_tiles,
-                                       int* __restrict__ slot, int* __restrict__ gid) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  if (j >= *total_raw) {  // past the last instance: dropped by the caller
-    slot[j] = m;
-    gid[j] = -1;
+// B2.  Blocks [0, nwork) take (chunk, band) = (b / nbands, b % nbands); the
+// blocks after them write slot m, gid -1 past total_raw.
+__global__ void __launch_bounds__(kInstThreads)
+svgir_instances_kernel(const int* __restrict__ x0, const int* __restrict__ y0,
+                       const int* __restrict__ x1, const int* __restrict__ y1,
+                       const int* __restrict__ offsets, const int* __restrict__ order,
+                       const int* __restrict__ table, const int* __restrict__ total_raw,
+                       int m, int gauss_chunk, int grid_x, int grid_y, int band_w,
+                       int band_h, int nbands, int nwork, int* __restrict__ slot,
+                       int* __restrict__ gid) {
+  const int n_raw = *total_raw;
+  if ((int)blockIdx.x >= nwork) {
+    const int j0 = (blockIdx.x - nwork) * (kInstThreads * kInstTailPer) + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kInstTailPer; ++k) {
+      const int j = j0 + k * kInstThreads;
+      if (j < m && j >= n_raw) {
+        slot[j] = m;
+        gid[j] = -1;
+      }
+    }
     return;
   }
-  // g = last Gaussian with offsets[g] <= j (Gaussians with no instances
-  // share their successor's offset and are skipped by taking the last)
-  int lo = 0, hi = ns;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offsets[mid] <= j) lo = mid + 1; else hi = mid;
+  const int gc = gauss_chunk, ng = (gc + 31) >> 5;  // ng groups of 32
+  const int ts = ng | 1;  // words per tile: one per group, odd stride
+  extern __shared__ int s_i[];
+  int* s_pre = s_i;             // [gc] exclusive scan of the in-band counts
+  int* s_ax = s_pre + gc;       // clipped rect's first tile, band coordinates
+  int* s_ay = s_ax + gc;
+  int* s_cw = s_ay + gc;        // clipped rect's width and height (0 if empty)
+  int* s_ch = s_cw + gc;
+  int* s_w = s_ch + gc;         // the rect's width
+  int* s_j0 = s_w + gc;         // j of the clipped rect's first tile
+  int* s_ord = s_j0 + gc;       // original Gaussian id
+  int* s_warp = s_ord + gc;     // [kInstThreads / 32] the scan's warp totals
+  unsigned* s_map = (unsigned*)(s_warp + kInstThreads / 32);  // [kInstWindow]
+  int* s_tab = (int*)(s_map + kInstWindow);                   // [bw * bh] table
+  unsigned* s_mask = (unsigned*)(s_tab + band_w * band_h);    // [bw * bh][ts]
+  unsigned short* s_below = (unsigned short*)(s_mask + band_w * band_h * ts);
+                                // [bw * bh][ng] covering Gaussians of earlier groups
+
+  const int chunk = blockIdx.x / nbands, band = blockIdx.x - chunk * nbands;
+  const int nbx = (grid_x + band_w - 1) / band_w;
+  const int bx0 = (band % nbx) * band_w, by0 = (band / nbx) * band_h;
+  const int bw = min(band_w, grid_x - bx0), bh = min(band_h, grid_y - by0);
+  const int ntile = bw * bh;
+  const int* tab = table + (size_t)chunk * grid_x * grid_y;
+  // the band's first table entries, loaded while the rects are
+  int tab_r[kInstTabRegs];
+#pragma unroll
+  for (int k = 0; k < kInstTabRegs; ++k) {
+    const int t = threadIdx.x + k * kInstThreads;
+    tab_r[k] = t < ntile ? tab[(size_t)(by0 + t / bw) * grid_x + bx0 + t % bw] : 0;
   }
-  const int g = lo - 1;
-  const int k = j - offsets[g];
-  const int gx0 = x0[g];
-  const int w = max(x1[g] - gx0, 1);
-  const int qy = k / w;
-  const int tx = gx0 + k - qy * w;
-  const int ty = y0[g] + qy;
-  const int cidx = g / gauss_chunk;
-  int rank = 0;
-  for (int h = cidx * gauss_chunk; h < g; ++h)
-    rank += (x0[h] <= tx) & (tx < x1[h]) & (y0[h] <= ty) & (ty < y1[h]);
-  slot[j] = table[(size_t)cidx * num_tiles + ty * grid_x + tx] + rank;
-  gid[j] = order[g];
+
+  // each thread takes `per` consecutive Gaussians of the chunk
+  const int per = (gc + kInstThreads - 1) / kInstThreads;
+  const int i0 = min((int)threadIdx.x * per, gc), i1 = min(i0 + per, gc);
+  const size_t g0 = (size_t)chunk * gc;
+  int own = 0;
+  for (int i = i0; i < i1; ++i) {
+    const size_t g = g0 + i;
+    const int gx0 = x0[g], gy0 = y0[g], w = x1[g] - gx0, off = offsets[g];
+    const int a = max(gx0, bx0), b = min(x1[g], bx0 + bw);
+    const int c = max(gy0, by0), d = min(y1[g], by0 + bh);
+    const int cw = max(b - a, 0), ch = max(d - c, 0);
+    s_ax[i] = a - bx0;
+    s_ay[i] = c - by0;
+    s_cw[i] = cw;
+    s_ch[i] = ch;
+    s_w[i] = w;
+    s_j0[i] = cw * ch ? off + (c - gy0) * w + (a - gx0) : 0;
+    s_ord[i] = order[g];
+    own += cw * ch;
+  }
+  // exclusive scan of the counts over the block: threads in order
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  int incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(SVGIR_FULL_MASK, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_warp[wp] = incl;
+  __syncthreads();
+  int run = incl - own, total = 0;  // this thread's start, the block's sum
+#pragma unroll
+  for (int k = 0; k < kInstThreads / 32; ++k) {
+    const int v = s_warp[k];
+    run += k < wp ? v : 0;
+    total += v;
+  }
+  if (total == 0) return;  // the whole block: nothing of this chunk in the band
+  for (int i = i0; i < i1; ++i) {
+    s_pre[i] = run;
+    run += s_cw[i] * s_ch[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kInstTabRegs; ++k) {
+    const int t = threadIdx.x + k * kInstThreads;
+    if (t < ntile) s_tab[t] = tab_r[k];
+  }
+  for (int t = threadIdx.x + kInstTabRegs * kInstThreads; t < ntile; t += kInstThreads)
+    s_tab[t] = tab[(size_t)(by0 + t / bw) * grid_x + bx0 + t % bw];
+  for (int t = threadIdx.x; t < ntile * ts; t += kInstThreads) s_mask[t] = 0;
+  __syncthreads();
+
+  // The per-Gaussian loops give each Gaussian `sub` threads, which take
+  // its clipped rect's rows in turn (no search, no division per tile).
+  const int sub = max(1, kInstThreads / gc);
+  // Walk 1: the coverage bit of each (Gaussian, tile), and the first
+  // window's map e -> (Gaussian, tile).
+  for (int it = threadIdx.x; it < gc * sub; it += kInstThreads) {
+    const int i = it % gc, cw = s_cw[i], ch = s_ch[i], pre = s_pre[i];
+    const unsigned t0 = s_ay[i] * bw + s_ax[i], key = (unsigned)i << 16;
+    unsigned* word = s_mask + (i >> 5);
+    const unsigned bit = 1u << (i & 31);
+    for (int r = it / gc; r < ch; r += sub)
+      for (int c = 0; c < cw; ++c) {
+        const unsigned t = t0 + r * bw + c;
+        atomicOr(word + t * ts, bit);
+        const int e = pre + r * cw + c;
+        if (e < kInstWindow) s_map[e] = key | t;
+      }
+  }
+  __syncthreads();
+  // below[t][q] = the chunk's Gaussians of groups before q covering tile t
+  // (eight words loaded before their eight counts are stored)
+  for (int t = threadIdx.x; t < ntile; t += kInstThreads) {
+    int acc = 0;
+    for (int q0 = 0; q0 < ng; q0 += 8) {
+      unsigned w8[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w8[k] = q0 + k < ng ? s_mask[t * ts + q0 + k] : 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (q0 + k < ng) s_below[t * ng + q0 + k] = (unsigned short)acc;
+        acc += __popc(w8[k]);
+      }
+    }
+  }
+  // Walk 2, a window of kInstWindow instances at a time (the map of each
+  // later window filled per Gaussian): a thread per instance writes its
+  // slot, rank = the chunk's Gaussians before g covering the tile (the
+  // earlier groups' count plus the bits below g's in its own group's
+  // word); stores at consecutive j coalesce.  The tile's row is
+  // t * magic >> 32, exact for t, bw <= 2^16.
+  const unsigned long long magic = ((1ull << 32) + bw - 1) / bw;
+  for (int e0 = 0; e0 < total; e0 += kInstWindow) {
+    if (e0 > 0) {
+      __syncthreads();  // the last window is read
+      for (int it = threadIdx.x; it < gc * sub; it += kInstThreads) {
+        const int i = it % gc, cw = s_cw[i], ch = s_ch[i], pre = s_pre[i] - e0;
+        if (pre >= kInstWindow || pre + cw * ch <= 0) continue;
+        const unsigned t0 = s_ay[i] * bw + s_ax[i];
+        for (int r = it / gc; r < ch; r += sub) {
+          const int lo = max(-(pre + r * cw), 0), hi = min(kInstWindow - pre - r * cw, cw);
+          for (int c = lo; c < hi; ++c)
+            s_map[pre + r * cw + c] = ((unsigned)i << 16) | (t0 + r * bw + c);
+        }
+      }
+    }
+    __syncthreads();  // the counts below are complete, the window's map filled
+    const int n = min(total - e0, kInstWindow);
+    for (int e = threadIdx.x; e < n; e += kInstThreads) {
+      const unsigned v = s_map[e];
+      const int i = v >> 16, t = v & 0xffff;
+      const int ly = (int)(((unsigned long long)t * magic) >> 32), lx = t - ly * bw;
+      const int j = s_j0[i] + (ly - s_ay[i]) * s_w[i] + lx - s_ax[i];
+      if (j >= n_raw || j >= m) continue;
+      const int q = i >> 5;
+      const int rank = s_below[t * ng + q] +
+                       __popc(s_mask[t * ts + q] & ((1u << (i & 31)) - 1u));
+      slot[j] = s_tab[t] + rank;
+      gid[j] = s_ord[i];
+    }
+  }
 }
 
 // B1: counts [grid_x * grid_y] and carry [nchunks, grid_x * grid_y], two
@@ -214,15 +392,46 @@ extern "C" int svgir_counts(const int* x0, const int* y0, const int* x1, const i
   return (int)cudaGetLastError();
 }
 
+// B2: slot and gid [m].  Shared memory per block: 8 * gauss_chunk + 16 ints
+// of the chunk's rects and scan, the instance map, and per tile of the band
+// its table entry, ts coverage words and ng counts; a grid
+// whose words exceed what a block may opt in to is walked in bands of
+// whole tile rows, else of a row's columns.
 extern "C" int svgir_instances(const int* x0, const int* y0, const int* x1, const int* y1,
                                const int* offsets, const int* order, const int* table,
                                const int* total_raw, int ns, int m, int gauss_chunk,
                                int grid_x, int num_tiles, int* slot, int* gid, void* stream) {
-  const int threads = 256;
-  const int blocks = (m + threads - 1) / threads;
-  if (blocks > 0)
-    svgir_instances_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        x0, y0, x1, y1, offsets, order, table, total_raw, ns, m, gauss_chunk, grid_x,
-        num_tiles, slot, gid);
+  if (gauss_chunk < 1 || ns < 0 || ns % gauss_chunk || m < 0 || grid_x < 1 ||
+      num_tiles < grid_x || num_tiles % grid_x)
+    return (int)cudaErrorInvalidValue;
+  const int grid_y = num_tiles / grid_x;
+  const long long ng = (gauss_chunk + 31) / 32;
+  const long long tile_b = 4LL * ((ng | 1) + 1) + 2LL * ng;
+  const long long fixed = 4LL * (8LL * gauss_chunk + kInstThreads / 32 + kInstWindow);
+  long long cap = (kSmemOptInMax - fixed) / tile_b;  // tiles a band may hold
+  if (cap > 65536) cap = 65536;  // the instance map keeps a tile in 16 bits
+  if (cap < 1 || gauss_chunk > 65536) return (int)cudaErrorInvalidValue;
+  int band_w = grid_x, band_h = grid_y;
+  if ((long long)num_tiles > cap) {
+    band_h = (int)(cap / grid_x);
+    if (band_h < 1) {
+      band_h = 1;
+      band_w = (int)cap;
+    }
+  }
+  const long long nbands =
+      (long long)((grid_x + band_w - 1) / band_w) * ((grid_y + band_h - 1) / band_h);
+  const long long nwork = (long long)(ns / gauss_chunk) * nbands;
+  const long long ntail = ((long long)m + kInstThreads * kInstTailPer - 1) /
+                          (kInstThreads * kInstTailPer);
+  if (nwork + ntail > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(fixed + tile_b * band_w * band_h);
+  cudaError_t err = svgir_smem_opt_in(svgir_instances_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nwork + ntail > 0)
+    svgir_instances_kernel<<<(unsigned)(nwork + ntail), kInstThreads, smem,
+                             (cudaStream_t)stream>>>(
+        x0, y0, x1, y1, offsets, order, table, total_raw, m, gauss_chunk, grid_x, grid_y,
+        band_w, band_h, (int)nbands, (int)nwork, slot, gid);
   return (int)cudaGetLastError();
 }

@@ -18,10 +18,11 @@
 // queries of a stage-2 step at 3.35 TB/s, against ~0.8 us of arithmetic.
 //
 // Forward: a stream of queries in, samples out, with an env read at random
-// (6-24 KB on the bench paths; 384 KB at the reference's default H = 128).  Each thread takes groups of
-// four queries: one 16-byte load each of u and v, and the group's 4*C
-// outputs, which are contiguous and start 16-byte aligned, as C 16-byte
-// stores.  The env is staged in each block's shared memory: 12 random
+// (6-24 KB on the bench paths: H = 16, the configuration's default, and 32,
+// the training recipe's; 384 KB at H = 128, the default argument of
+// direct_light_map_init).  Each thread takes groups of four queries: one
+// 16-byte load each of u and v, and the group's 4*C outputs, which are
+// contiguous and start 16-byte aligned, as C 16-byte stores.  The env is staged in each block's shared memory: 12 random
 // reads per query are cheaper there than from L1.  Staging costs the
 // env's bytes of L2 reads per block, so the grid is two blocks of 512
 // threads per SM at most (1,024 threads: enough 16-byte loads in flight

@@ -50,7 +50,12 @@ def counts(x0, y0, x1, y1, *, grid_x: int, grid_y: int, gauss_chunk: int):
 def instances(x0, y0, x1, y1, offsets, order, table, total_raw, *, m: int,
               grid_x: int, gauss_chunk: int):
     """Per-instance (slot [m], gid [m]) int32; slot m marks instances past
-    ``total_raw`` (see ``ops.binning_pallas.compute_instances``)."""
+    ``total_raw`` (see ``ops.binning_pallas.compute_instances``).  One
+    device kernel: a block per (Gaussian chunk, band of the grid) that
+    ranks the chunk's instances by coverage bits in shared memory, and
+    blocks that fill the slots past ``total_raw``.  The rects must lie in
+    the grid (as preprocess's clamped tile rects do), with ``offsets`` the
+    exclusive sum of their tile counts."""
     ns = x0.shape[0]
     if ns % gauss_chunk:
         raise ValueError(f"Ns={ns} is not a multiple of {gauss_chunk}")

@@ -3,8 +3,9 @@
 
 Both stage the whole env (or its gradient) in each block's shared memory
 where its ``H*W*C*4`` bytes fit what a block may opt in to.  A larger env
-(H >= 99 at W = 2H, C = 3: the reference's default H = 128 among them) is
-read in place by the forward, and the backward adds into a zero-filled
+(H >= 99 at W = 2H, C = 3: H = 128, the default argument of
+``direct_light_map_init``, among them; the configuration's default is 16,
+the training recipe's 32) is read in place by the forward, and the backward adds into a zero-filled
 ``d_env`` in device memory with float atomics.
 """
 

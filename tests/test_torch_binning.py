@@ -28,8 +28,9 @@ from svgir_tpu_torch.ops import binning as tbin
 from svgir_tpu_torch.ops import binning_pallas as tbp
 from svgir_tpu_torch.ops.preprocess import Preprocessed as TPrep
 
-from tests.torch_kernel_inputs import (RECT_CASES, synthetic_rects,
-                                       wide_grid_rects)
+from tests.torch_kernel_inputs import (INSTANCE_CASES, RECT_CASES,
+                                       instance_inputs, instances_from_rects,
+                                       synthetic_rects, wide_grid_rects)
 
 GC = 256
 
@@ -197,6 +198,77 @@ def test_instances_plain_matches_pallas(case):
                                   np.asarray(jgid)[:total_raw])
     assert (tslot.numpy()[total_raw:] == m).all()
     assert (tgid.numpy()[total_raw:] == -1).all()
+
+
+def _pallas_instances(inp, m, inst_block=512):
+    """JAX ``compute_instances`` (interpret mode) on ``instance_inputs``'
+    arrays, for instances [0, m) (m rounded up to whole blocks): the table
+    laid out as its padded (ty, tx) planes in f32, each block's window
+    starting at the chunk of its first instance's Gaussian."""
+    gx, gy = inp["grid_x"], inp["grid_y"]
+    x0, y0, x1, y1, offsets, order = (jnp.asarray(inp[k]) for k in (
+        "x0", "y0", "x1", "y1", "offsets", "order"))
+    m = -(-m // inst_block) * inst_block
+    firsts = jnp.clip(jnp.searchsorted(
+        offsets, jnp.arange(0, m, inst_block, dtype=jnp.int32),
+        side="right") - 1, 0, offsets.shape[0] - 1)
+    wstart = ((firsts // GC) * GC).astype(jnp.int32)
+    nct = inp["table"].shape[0]
+    table = np.zeros((nct, -(-gy // 8) * 8, -(-gx // 128) * 128), np.float32)
+    table[:, :gy, :gx] = inp["table"].reshape(nct, gy, gx)
+    slot, gid, _ = jbp.compute_instances(
+        x0, y0, x1, y1, offsets, order, wstart, jnp.asarray(table), m=m,
+        grid_x=gx, gauss_chunk=GC, inst_block=inst_block, interpret=True)
+    return np.asarray(slot), np.asarray(gid)
+
+
+# the instances held against JAX on the wide grids: its interpret-mode
+# table lookup costs a [GYp, GXp] plane per instance
+B2_PALLAS_M = {"wide_256x256": 4096, "wide_60000x3": 2048}
+
+
+@pytest.mark.parametrize("name", list(INSTANCE_CASES)
+                         + [f"synthetic_{n}" for n in sorted(RECT_CASES)])
+def test_instances_plain_matches_pallas_on_edge_cases(name):
+    """B2's edge cases (``tests/torch_kernel_inputs.instance_inputs``: a
+    chunk whose rects all cover one tile, a chunk of empty and inverted
+    rects, a last chunk ending in padding, m past and below total_raw, a
+    tile-16 grid, grids past a block's shared memory) and the synthetic
+    rects of B1's cases clipped to their grids: slots and gids equal to
+    the Pallas kernel's; past total_raw slot m and gid -1."""
+    if name.startswith("synthetic_"):
+        rects, (gx, gy) = synthetic_rects(name[len("synthetic_"):])
+        inp = instances_from_rects(rects, gx, gy)
+    else:
+        inp = instance_inputs(name)
+    m, total_raw = B2_PALLAS_M.get(name, inp["m"]), inp["total_raw"]
+    t = {k: torch.as_tensor(inp[k]) for k in (
+        "x0", "y0", "x1", "y1", "offsets", "order", "table")}
+    tslot, tgid = tbp.compute_instances(
+        t["x0"], t["y0"], t["x1"], t["y1"], t["offsets"], t["order"],
+        t["table"], torch.tensor(total_raw, dtype=torch.int32), m=m,
+        grid_x=inp["grid_x"], gauss_chunk=GC)
+    jslot, jgid = _pallas_instances(inp, m)
+    live = min(total_raw, m)
+    np.testing.assert_array_equal(tslot.numpy()[:live], jslot[:live])
+    np.testing.assert_array_equal(tgid.numpy()[:live], jgid[:live])
+    assert (tslot.numpy()[live:] == m).all()
+    assert (tgid.numpy()[live:] == -1).all()
+    assert name != "edges_overflow" or m < total_raw
+    if name == "edges":
+        assert m > total_raw
+        assert (np.diff(inp["offsets"][2 * GC:3 * GC]) == 0).all()
+        # the 256 Gaussians of chunk 1 all cover tile (12, 7): ranks 0..255
+        t_id = 7 * 25 + 12
+        g = np.searchsorted(inp["offsets"], np.arange(total_raw),
+                            side="right") - 1
+        k = np.arange(total_raw) - inp["offsets"][g]
+        w = np.maximum(inp["x1"][g] - inp["x0"][g], 1)
+        tile = (inp["y0"][g] + k // w) * 25 + inp["x0"][g] + k % w
+        at = (g // GC == 1) & (tile == t_id)
+        np.testing.assert_array_equal(
+            np.sort(tslot.numpy()[:total_raw][at] - inp["table"][1, t_id]),
+            np.arange(GC))
 
 
 @pytest.mark.parametrize("cap", [1 << 15, 1 << 9])

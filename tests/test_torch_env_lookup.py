@@ -101,9 +101,9 @@ def test_plain_backward_matches_pallas_and_xla(case):
 
 
 def test_plain_matches_pallas_on_an_env_past_shared_memory():
-    """A 128 x 256 x 3 env (the reference's default H = 128; 393,216 bytes,
-    past a block's shared memory, so the CUDA kernels read it in place and
-    add the gradient with atomics): the plain forward and backward against
+    """A 128 x 256 x 3 env (H = 128, ``direct_light_map_init``'s default
+    argument; 393,216 bytes, past a block's shared memory, so the CUDA
+    kernels read it in place and add the gradient with atomics): the plain forward and backward against
     the Pallas kernel, at the tolerances above."""
     env, u, v, g = _inputs(128, 256, 3)
     assert env.nbytes > 232_448

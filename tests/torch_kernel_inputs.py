@@ -1,7 +1,7 @@
 """Synthetic inputs of kernels B1 (tile counts and carry table, also on grids
-too wide for one block's shared memory), B3/B4 (the
-blend, at its edge cases) and B7 (the env-map lookup), made with numpy from
-a seed.
+too wide for one block's shared memory), B2 (instance slots, at its edge
+cases), B3/B4 (the blend, at its edge cases) and B7 (the env-map lookup),
+made with numpy from a seed.
 
 The CPU tests (``tests/test_torch_binning.py``,
 ``tests/test_torch_blend_edges.py``, ``tests/test_torch_env_lookup.py``)
@@ -80,6 +80,99 @@ def wide_grid_rects(grid_x: int, grid_y: int, ns: int = 2 * GAUSS_CHUNK,
     x0[:4], y0[:4], x1[:4], y1[:4] = 0, 0, grid_x, grid_y
     x1[4:8] += grid_x
     return tuple(a.astype(np.int32) for a in (x0, y0, x1, y1))
+
+
+# B2's edge cases, each built by ``instance_inputs``
+INSTANCE_CASES = ("edges", "edges_overflow", "tile16_50x50", "wide_256x256",
+                  "wide_60000x3")
+
+
+def instances_from_rects(rects, grid_x: int, grid_y: int, *, seed: int = 0):
+    """B2's inputs from depth-sorted rects [Ns] (Ns a multiple of 256),
+    as the counting binner forms them: the rects clipped to the grid (an
+    inverted one stays inverted: it covers no tile), each one's touched
+    count max(dx, 0) * max(dy, 0), their exclusive offsets and total_raw,
+    a seeded permutation as the original ids, and the table of carry
+    snapshots plus the chunk-aligned tile starts (tiles padded to the
+    blend's chunk of 128), with m = total_raw + 1,000 slots.  Returns a
+    dict of int32 arrays (x0, y0, x1, y1, offsets, order, table) with
+    total_raw, m, grid_x and grid_y."""
+    x0, y0, x1, y1 = (np.asarray(a, np.int64) for a in rects)
+    x0, x1 = np.clip(x0, 0, grid_x), np.clip(x1, 0, grid_x)
+    y0, y1 = np.clip(y0, 0, grid_y), np.clip(y1, 0, grid_y)
+    ns = x0.shape[0]
+    touched = np.maximum(x1 - x0, 0) * np.maximum(y1 - y0, 0)
+    offsets = np.cumsum(touched) - touched
+    total_raw = int(touched.sum())
+    nchunks, wd = ns // GAUSS_CHUNK, grid_x + 1
+    # per-chunk tile counts by difference arrays, then the carry snapshots
+    live = (x1 > x0) & (y1 > y0)
+    plane = np.arange(ns) // GAUSS_CHUNK * (grid_y + 1) * wd
+    diff = np.zeros(nchunks * (grid_y + 1) * wd, np.int64)
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        np.add.at(diff, (plane + yy * wd + xx)[live], sign)
+    per = diff.reshape(nchunks, grid_y + 1, wd).cumsum(1).cumsum(2)
+    per = per[:, :grid_y, :grid_x].reshape(nchunks, grid_x * grid_y)
+    counts = per.sum(0)
+    padded = -(-counts // 128) * 128
+    table = np.cumsum(per, 0) - per + (np.cumsum(padded) - padded)[None]
+    order = np.random.default_rng(seed).permutation(ns)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return dict(x0=i32(x0), y0=i32(y0), x1=i32(x1), y1=i32(y1),
+                offsets=i32(offsets), order=i32(order), table=i32(table),
+                total_raw=total_raw, m=total_raw + 1000, grid_x=grid_x,
+                grid_y=grid_y)
+
+
+def instance_inputs(name: str, seed: int = 0):
+    """B2's inputs at its edge cases (``instances_from_rects``' dict).
+
+    edges: the bench grid (25 x 25) and four chunks: small rects anywhere;
+    256 rects that all cover tile (12, 7), from 1 x 1 up, so the tile's
+    ranks run 0..255; only empty (zero-area) and inverted rects, whose
+    offsets repeat; and a last chunk whose real rects end after 100 in
+    padding, with m past total_raw.  edges_overflow: the same rects with m
+    below total_raw (the binner's overflow).  tile16_50x50: 800x800 at tile
+    16, three chunks of rects up to 8 tiles wide.  wide_256x256 and
+    wide_60000x3: ``wide_grid_rects`` in reverse depth order (the four
+    full-grid rects last, so their ranks count the earlier rects of their
+    chunk), grids past a block's shared memory."""
+    rng = np.random.default_rng(seed)
+    if name.startswith("wide_"):
+        gx, gy = (int(v) for v in name[5:].split("x"))
+        rects = [a[::-1] for a in wide_grid_rects(gx, gy)]
+        return instances_from_rects(rects, gx, gy, seed=seed)
+    if name == "tile16_50x50":
+        gx = gy = 50
+        ns = 3 * GAUSS_CHUNK
+        x0, y0 = rng.integers(0, gx, ns), rng.integers(0, gy, ns)
+        x1 = x0 + rng.integers(1, 9, ns)
+        y1 = y0 + rng.integers(1, 9, ns)
+        return instances_from_rects((x0, y0, x1, y1), gx, gy, seed=seed)
+    gx = gy = 25
+    c = GAUSS_CHUNK
+    x0, y0 = rng.integers(0, gx, 4 * c), rng.integers(0, gy, 4 * c)
+    x1 = x0 + rng.integers(1, 5, 4 * c)
+    y1 = y0 + rng.integers(1, 5, 4 * c)
+    one = slice(c, 2 * c)                  # every rect covers tile (12, 7)
+    x0[one] = 12 - rng.integers(0, 6, c)
+    y0[one] = 7 - rng.integers(0, 6, c)
+    x1[one] = 13 + rng.integers(0, 6, c)
+    y1[one] = 8 + rng.integers(0, 6, c)
+    x0[one][0], y0[one][0], x1[one][0], y1[one][0] = 12, 7, 13, 8
+    empty = slice(2 * c, 3 * c)            # zero-area or inverted
+    kind = rng.integers(0, 3, c)
+    x1[empty] = np.where(kind == 0, x0[empty], x1[empty])
+    y1[empty] = np.where(kind == 1, y0[empty], y1[empty])
+    inv = kind == 2
+    x0[empty][inv], x1[empty][inv] = x1[empty][inv] + 1, x0[empty][inv]
+    x0[3 * c + 100:] = y0[3 * c + 100:] = 0      # padding ends the last chunk
+    x1[3 * c + 100:] = y1[3 * c + 100:] = 0
+    out = instances_from_rects((x0, y0, x1, y1), gx, gy, seed=seed)
+    if name == "edges_overflow":
+        out["m"] = out["total_raw"] - 777
+    return out
 
 
 def env_lookup_inputs(h: int, w: int, c: int = 3, m: int = 20_000,
