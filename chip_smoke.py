@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile DIR   # also write torch.profiler
                                           # tables of stage-1, stage-2 and
                                           # S = 64 steps and a bake to DIR
-    python3 chip_smoke.py --parent DIR    # also time the blend, B2 and B9
-                                          # kernels of another checkout DIR
+    python3 chip_smoke.py --parent DIR    # also time the blend, B2, B7's
+                                          # backward, B8 and B9 kernels of
+                                          # another checkout DIR
                                           # (its own wrappers, built there)
                                           # in turns beside this tree's;
                                           # repeatable
@@ -85,10 +86,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  forward also on both of the eval render's lookups and on
                  the edge cases of the CPU tests (envs 16x32 and 32x64, M
                  37, 1,027 and 20,003, and each one shorter and not
-                 16-byte aligned); forward and backward on envs past one
-                 block's shared memory (128x256, 256x512: read in place,
-                 gradient added with atomics).  Then one stage-2 step with
-                 a 128x256 env
+                 16-byte aligned), the backward too; the backward on a
+                 64x128 env (one copy of d_env a block); forward and
+                 backward on envs past one block's shared memory (128x256,
+                 256x512: read in place, gradient summed in slices).
+                 Then one stage-2 step with a 128x256 env
                  (train.py --env_resolution 128): finite, the env
                  gradient nonzero, B7 against its plain version on it.
   10. s2 parity  a small stage-2 scene rendered and stepped on the card and
@@ -97,7 +99,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   11. s2 timing  stage-2 train step and eval render medians; B7 with its
                  plain version, bound and grid_sample yardstick (the
                  forward also on each eval lookup, and both on the env-128
-                 step); B3/B4 at stage-2 width.
+                 step); B3/B4 at stage-2 width; with --parent, B7's
+                 backward on both steps' cotangents in turns with the other
+                 tree's (the two held within TOL_ENV_BWD).
   The radiance bake that starts stage 2 (the bench scene upgraded to PBR,
   S = 64 samples per surfel and a 32x64 env as the recipe's --sample_num 64
   --env_resolution 32 (script/run_tensoir.sh), k_hits 16; the
@@ -110,8 +114,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  finite loss, moments and parameters; one S = 64 step's
                  time and peak memory; B7 forward and backward on that
                  step's 3.2M lookups against their plain versions and
-                 timed (with grid_sample, bound and launches).  The bench
-                 surfels face outward, so
+                 timed (with grid_sample, bound and launches; with
+                 --parent, the backward in turns with the other tree's).
+                 The bench surfels face outward, so
                  no ray of this bake hits a front face: the same surfels
                  turned inward are baked too (bake_radiance, S = 64, k 16;
                  most rays hit and lists fill), with one S = 64 step on
@@ -131,7 +136,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  with its plain version and its bound, counted from the
                  visits each chunk's data needs; the brute and the grid
                  bake at 3,000 and 6,000 surfels (either side of the
-                 switch at 4,096).
+                 switch at 4,096); with --parent, B8 on both first chunks
+                 in turns with the other tree's (held hit for hit).
   The tile-major paths (RasterConfig(strip=0), train.py --strip 0, and the
   sort binner, binner="sort") with B5/B6 (csrc/blend_forward.cu,
   csrc/blend_backward.cu, tile-major entries) and the column copies B9:
@@ -740,7 +746,8 @@ def blend_build(table, direction, ca, cv, tile, chunk, tiles=False):
 
 
 def parent_kernels(parent_dir):
-    """The blend, binning and column-copy wrappers of another checkout
+    """The blend, binning, column-copy, env-gradient (B7's backward) and
+    march (B8) wrappers of another checkout
     (``parent_dir`` holds its ``svgir_tpu_torch``), imported from there
     with its own build module,
     which builds its kernels in ``parent_dir``: this tree's modules are set
@@ -761,6 +768,8 @@ def parent_kernels(parent_dir):
         mod = importlib.import_module("svgir_tpu_torch.kernels.blend")
         bin_ = importlib.import_module("svgir_tpu_torch.kernels.binning")
         cols = importlib.import_module("svgir_tpu_torch.kernels.cols")
+        env = importlib.import_module("svgir_tpu_torch.kernels.env_lookup")
+        march = importlib.import_module("svgir_tpu_torch.kernels.march")
         bld = importlib.import_module("svgir_tpu_torch.kernels.build")
     finally:
         sys.path.remove(root)
@@ -778,6 +787,8 @@ def parent_kernels(parent_dir):
             "blend_backward_tiles": mod.blend_backward_tiles,
             "counts": bin_.counts, "instances": bin_.instances,
             "pad_cols": cols.pad_cols, "slice_cols": cols.slice_cols,
+            "env_lookup_backward": env.env_lookup_backward,
+            "march": march.march,
             "ptxas": log_path.read_text() if log_path.exists() else ""}
 
 
@@ -826,6 +837,62 @@ def compare_parent(parent, calls, label, card, tiles=False):
             out[direction] = in_turns(old, new)
             log_turns(out[direction], f"{parent['label']} {label}: "
                       f"{direction}{' (tiles)' if tiles else ''}", card)
+    return out
+
+
+def parent_env_backward(parents, b, bkw, label, card):
+    """Each other tree's B7 backward against this tree's on cotangents ``b``
+    (within TOL_ENV_BWD of the largest |d_env|), then both timed in turns;
+    returns {label: times}."""
+    import torch
+
+    from svgir_tpu_torch.kernels import env_lookup as K
+    out = {}
+    for p in parents:
+        with torch.no_grad():
+            mine, theirs = K.env_lookup_backward(*b, **bkw), \
+                p["env_lookup_backward"](*b, **bkw)
+            torch.cuda.synchronize()
+        e = float((mine - theirs).abs().max())
+        if e > TOL_ENV_BWD * max(float(theirs.abs().max()), 1e-30):
+            raise AssertionError(f"B7 backward [{label}] differs from "
+                                 f"{p['label']}'s by {e}")
+        o = in_turns(lambda p=p: p["env_lookup_backward"](*b, **bkw),
+                     lambda: K.env_lookup_backward(*b, **bkw))
+        out[p["label"]] = o
+        log_turns(o, f"{p['label']} env_lookup_backward [{label}]", card)
+    return out
+
+
+def parent_march(parents, grid, o, d, mkw, label, card):
+    """Each other tree's B8 against this tree's on one ray chunk (hit for
+    hit, within MARCH_SLOT_TOL of the finite slots), then both timed in
+    turns; returns {label: times}."""
+    import torch
+
+    from svgir_tpu_torch.kernels import march as K
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    args = (grid.block_geo, grid.block_start, grid.cell_count, o, d)
+    kw = dict(lo=grid.lo, inv_cell=grid.inv_cell, res=grid.res,
+              dt=GT.grid_dt(grid), t_max=mkw["t_max"], n_steps=mkw["n_steps"],
+              kmax=mkw["kmax"], cap=grid.cell_cap, k=mkw["k"])
+    out = {}
+    for p in parents:
+        with torch.no_grad():
+            (kt, ki), (pt, pi) = K.march(*args, **kw), p["march"](*args, **kw)
+            torch.cuda.synchronize()
+        fin = torch.isfinite(pt)
+        bad = int(((ki != pi) | (torch.isfinite(kt) != fin)
+                   | (fin & (kt != pt))).sum())
+        log(f"[parent] B8 [{label}] against {p['label']}'s: {int(fin.sum())} "
+            f"finite slots, {bad} differ")
+        if bad > MARCH_SLOT_TOL * max(int(fin.sum()), 1):
+            raise AssertionError(f"B8 [{label}] differs from {p['label']}'s "
+                                 f"at {bad} slots")
+        o_ = in_turns(lambda p=p: p["march"](*args, **kw),
+                      lambda: K.march(*args, **kw))
+        out[p["label"]] = o_
+        log_turns(o_, f"{p['label']} march [{label}]", card)
     return out
 
 
@@ -1327,10 +1394,12 @@ def small_bake_inputs(n=3000, seed=5):
             G.get_opacity(p)[:, 0], shs), az
 
 
-def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
+def run_bake(state, cam, opt, cfg, bg, card, dev, parents=(),
+             profile_dir=None):
     """Phases 12-16; returns B8's entries of the kernels JSON (the main
     path's first chunk, and the inward bench bake's).  With
-    ``profile_dir``, also writes the profile of one S = 64 step there."""
+    ``profile_dir``, also writes the profile of one S = 64 step there;
+    with ``parents``, times their B7 backward and B8 in turns."""
     import torch
 
     from svgir_tpu_torch import kernels
@@ -1448,6 +1517,9 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
             f"{fa64[1].numel()} queries): " + fmt_times(t, "grid_sample")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; {launches[name]} "
             f"launches in the bake and {steps} steps; card: {card}")
+    times = parent_env_backward(parents, ba64, bkw64, env_label, card)
+    if times:
+        b7_entries[1]["parent"] = times
 
     # ---- the bench scene turned inward: a full-size bake whose rays hit --
     # The main path's surfels face outward, so none of its rays meets a
@@ -1679,10 +1751,18 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, profile_dir=None):
     entry = {"route": "cuda", "source": "svgir_tpu_torch/csrc/march.cu",
              "replaces": "svgir_tpu/ops/march_pallas.py:66",
              "launches": launches["march"]}
-    return [{"name": "march", **entry, "max_abs_err": err, **tb,
-             "bound_ms": bms, "bound_by": by},
-            {"name": "march_inward_bench", **entry, "max_abs_err": err_i,
-             **tb_i, "bound_ms": bms_i, "bound_by": by_i}] + b7_entries
+    b8 = [{"name": "march", **entry, "max_abs_err": err, **tb,
+           "bound_ms": bms, "bound_by": by},
+          {"name": "march_inward_bench", **entry, "max_abs_err": err_i,
+           **tb_i, "bound_ms": bms_i, "bound_by": by_i}]
+    # B8 against each --parent tree's, in turns, on both chunks
+    for e, (g_, o_, d_, kw_, label) in zip(b8, (
+            (grid, o, d, mkw, "no-hit chunk"),
+            (grid_i, o_i, d_i, imkw, "inward chunk"))):
+        times = parent_march(parents, g_, o_, d_, kw_, label, card)
+        if times:
+            e["parent"] = times
+    return b8 + b7_entries
 
 
 # ---------------------------------------------------------------------------
@@ -2623,23 +2703,36 @@ def main() -> int:
     evals = cap_s2_render.every["env_lookup_forward"]
     e7fe = [compare_env_forward(a, f"stage-2 eval call {i}")
             for i, (a, _) in enumerate(evals)]
-    e7f_edge = 0.0
+    e7f_edge, e7b_edge = 0.0, 0.0
     for h, w in ((16, 32), (32, 64)):
         for m in (37, 1_027, 20_003):
-            env, u, v, _ = inputs.env_lookup_inputs(h, w, 3, m, seed=m)
-            env, u, v = (torch.from_numpy(x).to(dev) for x in (env, u, v))
+            env, u, v, g = inputs.env_lookup_inputs(h, w, 3, m, seed=m)
+            env, u, v, g = (torch.from_numpy(x).to(dev) for x in (env, u, v, g))
+            lab = f"edge cases {h}x{w}, M={m}"
+            e7f_edge = max(e7f_edge, compare_env_forward((env, u, v), lab))
+            e7b_edge = max(e7b_edge, compare_env_backward(u, v, g, h, w, lab))
+            # u, v and g starting 4 bytes into their buffers: not 16-byte
+            # aligned
+            lab = f"edge cases {h}x{w}, M={m - 1}, unaligned"
             e7f_edge = max(e7f_edge, compare_env_forward(
-                (env, u, v), f"edge cases {h}x{w}, M={m}"))
-            # u, v starting 4 bytes into their buffers: not 16-byte aligned
-            e7f_edge = max(e7f_edge, compare_env_forward(
-                (env, u[1:], v[1:]), f"edge cases {h}x{w}, M={m - 1}, "
-                "unaligned"))
+                (env, u[1:], v[1:]), lab))
+            e7b_edge = max(e7b_edge, compare_env_backward(
+                u[1:], v[1:], g.reshape(-1)[1:3 * m - 2].reshape(m - 1, 3),
+                h, w, lab))
     log(f"[kernels] B7 forward on the eval render's {len(evals)} lookups "
         f"({', '.join(str(a[1].numel()) for a, _ in evals)} queries): "
         f"max|err| {max(e7fe):.3g}; on the edge cases (16x32 and 32x64, "
-        f"M 37, 1,027, 20,003 and one less, unaligned): {e7f_edge:.3g}")
-    # envs past a block's shared memory: read in place, gradient added
-    # with atomics
+        f"M 37, 1,027, 20,003 and one less, unaligned): forward "
+        f"{e7f_edge:.3g}, backward {e7b_edge:.3g}")
+    # B7's backward on an env that fits one copy a block but too few for
+    # one a warp (64x128: the route of shared atomics)
+    env, u, v, g = (torch.from_numpy(x).to(dev)
+                    for x in inputs.env_lookup_inputs(64, 128, 3, 20_003))
+    e7b_mid = compare_env_backward(u, v, g, 64, 128, "env 64x128, M=20003")
+    log(f"[kernels] B7 backward on a 64x128 env (one copy a block, M "
+        f"20,003): max|err| {e7b_mid:.3g}")
+    # envs past a block's shared memory: read in place, gradient summed in
+    # slices
     e7_wide = [0.0, 0.0]
     for h, w in ((128, 256), (256, 512)):
         env, u, v, g = (torch.from_numpy(x).to(dev)
@@ -2794,6 +2887,14 @@ def main() -> int:
             "bound_ms": bd[0], "bound_by": bd[1]})
         log(f"[s2 timing] {name}: " + fmt_times(t, "grid_sample")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; card: {card}")
+    # B7's backward against each --parent tree's, in turns
+    for name, (b_, bkw_), label in (
+            ("env_lookup_backward", (ba, bkw), "S = 24 step"),
+            ("env_lookup_backward_stage2_env128", (ba128, bkw128),
+             "env 128x256 step")):
+        times = parent_env_backward(parents, b_, bkw_, label, card)
+        if times:
+            next(e for e in report if e["name"] == name)["parent"] = times
     blend_extras(report, c2, "stage-2 step", ptx, parents, card,
                  {"forward": "blend_forward_stage2",
                   "backward": "blend_backward_stage2"})
@@ -2810,7 +2911,8 @@ def main() -> int:
     # ---- 12-16. the radiance bake ------------------------------------------
     out_dir = sys.argv[sys.argv.index("--profile") + 1] \
         if "--profile" in sys.argv[1:-1] else None
-    report.extend(run_bake(state, cam, opt, cfg, bg, card, dev, out_dir))
+    report.extend(run_bake(state, cam, opt, cfg, bg, card, dev, parents,
+                           out_dir))
 
     # ---- 17-23. the tile-major paths (strip 0, sort binner) and B9 -------
     report.extend(run_tiles(

@@ -41,17 +41,35 @@
 // __fadd_rn, no contraction into fused multiply-adds), in the order of
 // the plain version (rows first, then columns), so the two agree exactly.
 //
-// Backward: 1.2M queries x 4 taps x C land on H*W*C floats, so global
-// atomics would serialise on a few thousand addresses.  Each block sums its
-// queries into a private copy of d_env in shared memory (shared-memory
-// atomics: the order within a block varies from run to run, which costs
-// float32 rounding, about 1e-6 of the largest |d_env| on the stage-2 bench
-// step; chip_smoke.py holds it to 1e-5), writes the copy to partial[block],
-// and a second launch sums the partials over the blocks in a fixed order.
-// An env past a block's shared memory has no private copies: the queries
-// add into d_env in device memory with float atomics (zero-filled by the
-// caller), spread over its H*W*C addresses, in an order that varies from
-// run to run, held to the same 1e-5.
+// Backward: each query adds 4 taps x C weighted cotangents into d_env; at
+// the recipe's shape 3.2M queries land on 6,144 floats, so adds into device
+// memory would queue on a few thousand L2 addresses, and the sums are taken
+// in copies of d_env in shared memory, which the blocks then add into d_env
+// (zero-filled by the caller) with 16-byte float atomics, skipping zeros:
+// one launch, no scratch copies in device memory, no second pass over them.
+// What bounds it on an H100 are the shared-memory adds.  A shared float
+// atomicAdd is a compare-and-swap loop (ATOMS.CAST.SPIN): with one copy a
+// block, the adds took 0.059 of the 0.083 ms of the recipe's step, where
+// plain adds (wrong sums) took 0.015.  About 3.4 lanes of a warp meet on
+// one bank per access, and fewer than 2% of a warp's queries share a texel.
+// So where a block holds 8 copies or more (the envs of the configuration
+// and the recipe: 16x32, 32x64), each warp sums into a copy of its own
+// with plain loads and stores (svgir_env_bwd_warps_kernel); lanes that
+// share a first texel are found by a byte per texel and add with atomics.
+// With 8 warps an SM that route is bound by the latency of the loads and
+// of the warp's adds, one tap after the other.  An env with fewer copies
+// to a block takes one copy a block of 1,024 threads, two an SM, one query
+// a thread, shared atomics (svgir_env_bwd_kernel).  Explicit
+// compare-and-swaps issued in batches (ATOMS.CAS), four queries a thread,
+// clusters adding their copies through distributed shared memory, sixteen
+// queries a lane, and warps holding one channel each all ran slower.
+// An env past a block's shared memory (H >= 99 at W = 2H, C = 3) is cut
+// into P slices that each fit one block (P = 2 at 128x256, 7 at 256x512);
+// blocks come in groups of P, every block of a group reads the group's
+// queries and adds only the taps in its slice, then adds its slice into
+// d_env.  The order of the adds varies from run to run (float32 rounding,
+// about 1e-6 of the largest |d_env| on the stage-2 bench step;
+// chip_smoke.py holds it to 1e-5).
 #include <cstdint>
 
 #include "blend_common.cuh"
@@ -181,71 +199,187 @@ svgir_env_fwd_kernel(const float* __restrict__ env, const float* __restrict__ u,
   }
 }
 
-__global__ void __launch_bounds__(1024)
-svgir_env_bwd_partial_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                             const float* __restrict__ g, long long m, int h, int w, int c,
-                             float* __restrict__ partial) {
-  extern __shared__ float s_d[];
-  const int hwc = h * w * c;
-  for (int i = threadIdx.x; i < hwc; i += blockDim.x) s_d[i] = 0.f;
+static const int kBwdThreads = 1024;
+static const int kBwdBlocksPerSM = 2;  // the wrapper's grid: at most 2 per SM
+
+// One query's channel: its four weighted taps added into the block's copy
+// s with shared atomics (with PARTS, an address outside [0, n) lies in
+// another block's slice and is skipped).
+template <bool PARTS>
+__device__ __forceinline__ void svgir_env_add_taps(float* s, int b, int c, int wc, float wu,
+                                                   float wv, float gv, int n) {
+  const float a0 = (1.f - wu) * gv, a1 = wu * gv;
+  const int at[4] = {b, b + c, b + wc, b + wc + c};
+  const float x[4] = {(1.f - wv) * a0, (1.f - wv) * a1, wv * a0, wv * a1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (!PARTS || (unsigned)at[i] < (unsigned)n) atomicAdd(s + at[i], x[i]);
+}
+
+// Adds 16 bytes of a block's summed d_env (floats 4 i4 .. 4 i4 + 3) into
+// d_env in device memory (16-byte aligned), skipping zeros: one vector
+// atomic where CUDA has it for sm_90.
+__device__ __forceinline__ void svgir_env_flush(float* d_env, int hwc, int i4, float4 x) {
+  if (x.x == 0.f && x.y == 0.f && x.z == 0.f && x.w == 0.f) return;
+  const int e = 4 * i4;
+#if __CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1202
+  if (e + 4 <= hwc) {
+    atomicAdd(reinterpret_cast<float4*>(d_env) + i4, x);
+    return;
+  }
+#endif
+  const float y[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (e + j < hwc && y[j] != 0.f) atomicAdd(d_env + e + j, y[j]);
+}
+
+static const int kWarpQueries = 8;  // queries a lane holds: a warp's window is 256
+static const int kWarpThreadsMax = 512;
+
+// One query's channel into a warp's own copy s, one tap at a time: plain
+// loads and stores for a lane that holds its first texel alone (on), a
+// shared atomicAdd for one that shares it (shared), with a __syncwarp
+// between taps so that one lane's store comes before another lane's load
+// of the same float (lanes with different first texels meet only across
+// taps, never within one).
+__device__ __forceinline__ void svgir_env_warp_taps(float* s, bool on, bool shared, int b, int c,
+                                                    int wc, float wu, float wv, float gv) {
+  const float a0 = (1.f - wu) * gv, a1 = wu * gv;
+  const int at[4] = {b, b + c, b + wc, b + wc + c};
+  const float x[4] = {(1.f - wv) * a0, (1.f - wv) * a1, wv * a0, wv * a1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (on) s[at[i]] = __fadd_rn(s[at[i]], x[i]);
+    else if (shared) atomicAdd(s + at[i], x[i]);
+    __syncwarp();
+  }
+}
+
+// The backward of an env whose copy of d_env fits a block's shared memory
+// many times over (the wrapper's plan: at least 8, with a byte per texel):
+// one copy per warp, so no two warps add into one float and most adds are
+// plain loads and stores in place of shared atomics.  A warp takes windows
+// of 256 consecutive queries, lane l queries l, l + 32, ... (consecutive
+// queries rarely share a texel), the next window's loads issued before
+// this one's adds.  For each query slot the lanes write their lane into
+// the byte of their first texel and read it back: the lane whose write
+// stayed adds its taps with plain loads and stores; afterwards, and only
+// where some lane lost, the others add theirs with shared atomics.  At the
+// end the block adds its warps' copies in warp order and adds the sum into
+// d_env (zero-filled by the caller).
+template <int CT>
+__global__ void __launch_bounds__(kWarpThreadsMax, 1)
+svgir_env_bwd_warps_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                           const float* __restrict__ g, long long m, int h, int w, int c_rt,
+                           int copy_floats, float* __restrict__ d_env) {
+  extern __shared__ float4 s_d4[];
+  constexpr int CG = CT > 0 ? CT : 1;
+  const int c = CT > 0 ? CT : c_rt;
+  const int hwc = h * w * c, wc = w * c;
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n4 = copy_floats / 4;
+  float* s_w = reinterpret_cast<float*>(s_d4) + warp * copy_floats;
+  unsigned char* tag = reinterpret_cast<unsigned char*>(s_d4 + n4 * nwarps) +
+                       warp * ((h * w + 15) & ~15);
+  const long long window = 32 * kWarpQueries;
+  const long long stride = (long long)gridDim.x * nwarps * window;
+  long long w0 = ((long long)blockIdx.x * nwarps + warp) * window;
+  float uq[kWarpQueries], vq[kWarpQueries], gq[kWarpQueries * CG];
+  auto load = [&](long long base) {
+#pragma unroll
+    for (int k = 0; k < kWarpQueries; ++k) {
+      const long long q = base + 32 * k + lane;
+      const bool in = q < m;
+      uq[k] = in ? __ldg(u + q) : 0.f;
+      vq[k] = in ? __ldg(v + q) : 0.f;
+      if constexpr (CT > 0) {
+#pragma unroll
+        for (int ch = 0; ch < CT; ++ch) gq[k * CT + ch] = in ? __ldg(g + q * CT + ch) : 0.f;
+      }
+    }
+  };
+  if (w0 < m) load(w0);
+  for (int i = threadIdx.x; i < n4 * nwarps; i += blockDim.x)
+    s_d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < m; q += stride) {
-    int su, sv;
-    float wu, wv;
-    svgir_env_tap(u[q], w, su, wu);
-    svgir_env_tap(v[q], h, sv, wv);
-    float* d00 = s_d + (sv * w + su) * c;
-    float* d10 = d00 + w * c;
-    for (int ch = 0; ch < c; ++ch) {
-      const float gq = g[q * c + ch];
-      const float a0 = (1.f - wu) * gq, a1 = wu * gq;
-      atomicAdd(d00 + ch, (1.f - wv) * a0);
-      atomicAdd(d00 + c + ch, (1.f - wv) * a1);
-      atomicAdd(d10 + ch, wv * a0);
-      atomicAdd(d10 + c + ch, wv * a1);
+  for (; w0 < m; w0 += stride) {  // the same trips for every lane
+    int tex[kWarpQueries];
+    float wu[kWarpQueries], wv[kWarpQueries], gc[kWarpQueries * CG];
+#pragma unroll
+    for (int k = 0; k < kWarpQueries; ++k) {
+      int su, sv;
+      svgir_env_tap(uq[k], w, su, wu[k]);
+      svgir_env_tap(vq[k], h, sv, wv[k]);
+      tex[k] = sv * w + su;
+    }
+#pragma unroll
+    for (int j = 0; j < kWarpQueries * CG; ++j) gc[j] = gq[j];
+    if (w0 + stride < m) load(w0 + stride);
+#pragma unroll
+    for (int k = 0; k < kWarpQueries; ++k) {
+      const long long q = w0 + 32 * k + lane;
+      const bool valid = q < m;
+      if (valid) tag[tex[k]] = (unsigned char)lane;
+      __syncwarp();
+      const bool alone = valid && tag[tex[k]] == lane;
+      const bool lost = __any_sync(0xffffffffu, valid && !alone);
+#pragma unroll
+      for (int ch = 0; ch < c; ++ch) {
+        const float gv = CT > 0 ? gc[k * CG + ch] : (valid ? __ldg(g + q * c + ch) : 0.f);
+        svgir_env_warp_taps(s_w, alone, false, tex[k] * c + ch, c, wc, wu[k], wv[k], gv);
+        if (lost)
+          svgir_env_warp_taps(s_w, false, valid && !alone, tex[k] * c + ch, c, wc, wu[k], wv[k],
+                              gv);
+      }
     }
   }
   __syncthreads();
-  float* dst = partial + (size_t)blockIdx.x * hwc;
-  for (int i = threadIdx.x; i < hwc; i += blockDim.x) dst[i] = s_d[i];
-}
-
-// The backward of an env past shared memory: each query adds its four
-// weighted taps into d_env (zero-filled) with float atomics.
-__global__ void __launch_bounds__(1024)
-svgir_env_bwd_global_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                            const float* __restrict__ g, long long m, int h, int w, int c,
-                            float* __restrict__ d_env) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < m; q += stride) {
-    int su, sv;
-    float wu, wv;
-    svgir_env_tap(u[q], w, su, wu);
-    svgir_env_tap(v[q], h, sv, wv);
-    float* d00 = d_env + ((size_t)sv * w + su) * c;
-    float* d10 = d00 + (size_t)w * c;
-    for (int ch = 0; ch < c; ++ch) {
-      const float gq = g[q * c + ch];
-      const float a0 = (1.f - wu) * gq, a1 = wu * gq;
-      atomicAdd(d00 + ch, (1.f - wv) * a0);
-      atomicAdd(d00 + c + ch, (1.f - wv) * a1);
-      atomicAdd(d10 + ch, wv * a0);
-      atomicAdd(d10 + c + ch, wv * a1);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    float4 acc = s_d4[i];
+    for (int q = 1; q < nwarps; ++q) {
+      const float4 x = s_d4[q * n4 + i];
+      acc.x = __fadd_rn(acc.x, x.x), acc.y = __fadd_rn(acc.y, x.y);
+      acc.z = __fadd_rn(acc.z, x.z), acc.w = __fadd_rn(acc.w, x.w);
     }
+    svgir_env_flush(d_env, hwc, i, acc);
   }
 }
 
-__global__ void svgir_env_bwd_reduce_kernel(const float* __restrict__ partial, int nblocks,
-                                            int hwc, float* __restrict__ d_env) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hwc) return;
-  float s = 0.f;
-  for (int b = 0; b < nblocks; ++b) s += partial[(size_t)b * hwc + i];
-  d_env[i] = s;
+// CT: the channel count where it is known when compiling (3), 0 for c_rt.
+// PARTS: d_env is cut into `parts` slices of part_floats floats, block b
+// holding slice b % parts and taking the queries of its group b / parts
+// (an env past one block's shared memory); else each block holds all of it.
+template <int CT, bool PARTS>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
+svgir_env_bwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     const float* __restrict__ g, long long m, int h, int w, int c_rt, int parts,
+                     int part_floats, float* __restrict__ d_env) {
+  extern __shared__ float4 s_d4[];
+  float* s_d = reinterpret_cast<float*>(s_d4);
+  const int c = CT > 0 ? CT : c_rt;
+  const int hwc = h * w * c, wc = w * c;
+  const int np = PARTS ? parts : 1;
+  const int lo = PARTS ? (int)(blockIdx.x % np) * part_floats : 0;
+  const int n4 = part_floats / 4;
+  for (int i = threadIdx.x; i < n4; i += kBwdThreads) s_d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const long long stride = (long long)(gridDim.x / np) * kBwdThreads;
+  for (long long q = (long long)(blockIdx.x / np) * kBwdThreads + threadIdx.x; q < m;
+       q += stride) {
+    int su, sv;
+    float wu, wv;
+    svgir_env_tap(__ldg(u + q), w, su, wu);
+    svgir_env_tap(__ldg(v + q), h, sv, wv);
+    const int b = (sv * w + su) * c - lo;
+#pragma unroll
+    for (int ch = 0; ch < c; ++ch)
+      svgir_env_add_taps<PARTS>(s_d, b + ch, c, wc, wu, wv, __ldg(g + q * c + ch), part_floats);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n4; i += kBwdThreads)
+    svgir_env_flush(d_env, hwc, lo / 4 + i, s_d4[i]);
 }
-
-static const int kEnvThreads = 1024;  // backward
 
 // Forward: out [m, c], 16-byte aligned (refused, as an invalid value,
 // otherwise; u and v need not be).  nblocks (>= 1) blocks of 512 threads
@@ -284,28 +418,59 @@ extern "C" int svgir_env_lookup_forward(const float* env, const float* u, const 
   return (int)cudaGetLastError();
 }
 
-// Backward: d_env [h, w, c] from the cotangents g [m, c].  With partial
-// (nblocks * h*w*c floats of scratch, every one of them written) each
-// block sums into shared memory and a second launch adds the blocks;
-// without it (an env past shared memory) the queries add into d_env,
-// which the caller zero-fills, with float atomics.
+template <int CT>
+static cudaError_t launch_env_backward(const float* u, const float* v, const float* g,
+                                       long long m, int h, int w, int c, int nblocks, int parts,
+                                       int part_floats, int warps, float* d_env,
+                                       cudaStream_t s) {
+  const size_t smem = (size_t)part_floats * sizeof(float);
+  if (parts > 1) {
+    cudaError_t err = svgir_smem_opt_in(svgir_env_bwd_kernel<CT, true>, smem);
+    if (err == cudaSuccess)
+      svgir_env_bwd_kernel<CT, true><<<nblocks, kBwdThreads, smem, s>>>(u, v, g, m, h, w, c,
+                                                                         parts, part_floats,
+                                                                         d_env);
+    return err;
+  }
+  if (warps > 0) {
+    const size_t wsmem = ((size_t)part_floats * 4 + ((size_t)h * w + 15) / 16 * 16) * warps;
+    cudaError_t err = svgir_smem_opt_in(svgir_env_bwd_warps_kernel<CT>, wsmem);
+    if (err == cudaSuccess)
+      svgir_env_bwd_warps_kernel<CT><<<nblocks, warps * 32, wsmem, s>>>(u, v, g, m, h, w, c,
+                                                                          part_floats, d_env);
+    return err;
+  }
+  cudaError_t err = svgir_smem_opt_in(svgir_env_bwd_kernel<CT, false>, smem);
+  if (err == cudaSuccess)
+    svgir_env_bwd_kernel<CT, false><<<nblocks, kBwdThreads, smem, s>>>(u, v, g, m, h, w, c, 1,
+                                                                        part_floats, d_env);
+  return err;
+}
+
+// Backward: adds into d_env [h, w, c] (zero-filled by the caller, 16-byte
+// aligned) the gradient of the cotangents g [m, c].  d_env is cut into
+// `parts` slices of part_floats floats (a multiple of 4, at most what a
+// block may opt in to), nblocks a multiple of parts.  With warps > 0 (one
+// part) each of the blocks' warps holds a copy of its own and a byte per
+// texel.  kernels.env_lookup.backward_plan says which.
 extern "C" int svgir_env_lookup_backward(const float* u, const float* v, const float* g,
                                          long long m, int h, int w, int c, int nblocks,
-                                         float* partial, float* d_env, void* stream) {
-  if (h < 2 || w < 2 || c < 1 || nblocks < 1) return (int)cudaErrorInvalidValue;
+                                         int parts, int part_floats, int warps, float* d_env,
+                                         void* stream) {
+  if (h < 2 || w < 2 || c < 1 || nblocks < 1 || parts < 1 || part_floats < 4 ||
+      (part_floats & 3) || nblocks % parts || (size_t)part_floats * 4 > (size_t)kSmemOptInMax ||
+      (long long)parts * part_floats < (long long)h * w * c || ((uintptr_t)d_env & 15) ||
+      warps < 0 || warps * 32 > kWarpThreadsMax || (warps > 0 && parts > 1) ||
+      ((size_t)part_floats * 4 + ((size_t)h * w + 15) / 16 * 16) * warps >
+          (size_t)kSmemOptInMax)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (partial == nullptr) {
-    if (m > 0)
-      svgir_env_bwd_global_kernel<<<nblocks, kEnvThreads, 0, s>>>(u, v, g, m, h, w, c, d_env);
-    return (int)cudaGetLastError();
-  }
-  const int hwc = h * w * c;
-  const size_t smem = (size_t)hwc * sizeof(float);
-  cudaError_t err = svgir_smem_opt_in(svgir_env_bwd_partial_kernel, smem);
+  const cudaError_t err =
+      c == 3 ? launch_env_backward<3>(u, v, g, m, h, w, c, nblocks, parts, part_floats, warps,
+                                      d_env, s)
+             : launch_env_backward<0>(u, v, g, m, h, w, c, nblocks, parts, part_floats, warps,
+                                      d_env, s);
   if (err != cudaSuccess) return (int)err;
-  svgir_env_bwd_partial_kernel<<<nblocks, kEnvThreads, smem, s>>>(u, v, g, m, h, w, c, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  svgir_env_bwd_reduce_kernel<<<(hwc + 255) / 256, 256, 0, s>>>(partial, nblocks, hwc, d_env);
   return (int)cudaGetLastError();
 }

@@ -254,3 +254,52 @@ def test_unsupported_device_is_refused():
         blend_pallas_strip.blend_forward(
             torch.zeros(128, 26, device="meta"), t, t, ca=14, cv=0,
             grid_x=2, grid_y=2, tile=16, chunk=128)
+
+
+@pytest.mark.parametrize("h,w,m,sms,want", [
+    # the configuration's default env, the recipe's at S = 24 and S = 64:
+    # a copy for each warp of a block, one block an SM
+    (16, 32, 1_200_000, 132, dict(parts=1, part_floats=1_536, warps=16,
+                                  blocks=132)),
+    (32, 64, 1_200_000, 132, dict(parts=1, part_floats=6_144, warps=8,
+                                  blocks=132)),
+    (32, 64, 3_200_000, 114, dict(parts=1, part_floats=6_144, warps=8,
+                                  blocks=114)),
+    (16, 32, 37, 132, dict(parts=1, part_floats=1_536, warps=16, blocks=1)),
+    # a copy a block: too few copies fit for one a warp
+    (64, 128, 1_200_000, 132, dict(parts=1, part_floats=24_576, warps=0,
+                                   blocks=264)),
+    (64, 128, 37, 132, dict(parts=1, part_floats=24_576, warps=0, blocks=1)),
+    # envs past a block's shared memory, in slices
+    (128, 256, 1_200_000, 132, dict(parts=2, part_floats=49_152, warps=0,
+                                    blocks=132)),
+    (256, 512, 5_000, 132, dict(parts=7, part_floats=56_176, warps=0,
+                                blocks=35)),
+    (256, 512, 1_200_000, 132, dict(parts=7, part_floats=56_176, warps=0,
+                                    blocks=126)),
+])
+def test_env_backward_plan(h, w, m, sms, want):
+    """B7's backward sizes what it holds in shared memory and its grid from
+    (H, W, C, M, SM count) alone: a copy of d_env (and a byte a texel) a
+    warp where a block holds 8 or more, else a copy a block, else slices of
+    it, one a block of a group; no more blocks than the SMs hold, nor than
+    the queries need."""
+    c = 3
+    plan = KE.backward_plan(h, w, c, m, sms)
+    assert {k: plan[k] for k in want} == want
+    parts, pf, blocks = plan["parts"], plan["part_floats"], plan["blocks"]
+    assert pf % 4 == 0 and pf * 4 <= build.SMEM_OPT_IN_MAX
+    assert (parts - 1) * pf < h * w * c <= parts * pf
+    assert blocks % parts == 0 and plan["smem"] <= build.SMEM_OPT_IN_MAX
+    if plan["warps"]:
+        tags = -(-h * w // 16) * 16          # a byte per texel, 16-aligned
+        assert plan["smem"] == plan["warps"] * (pf * 4 + tags)
+        assert plan["per_sm"] == 1 and parts == 1
+        assert KE.BWD_WARP_COPIES <= plan["warps"] <= KE.BWD_WARPS_MAX
+        per_block = plan["warps"] * KE.BWD_WARP_QUERIES
+    else:
+        assert plan["smem"] == pf * 4
+        assert plan["per_sm"] == (2 if parts == 1 else 1)
+        per_block = KE.BWD_GRID[0] * KE.BWD_GRID[1]
+    assert blocks <= max(plan["per_sm"] * sms, parts)
+    assert blocks // parts <= -(-m // per_block)
