@@ -169,6 +169,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  their plain versions, bounds and (B9) F.pad / slice copy;
                  with --parent, B9 in turns with the other tree's.
 
+  Densification and the training CLI (the trainer's entry point):
+  24. densify    the bench scene at init_from_points' default capacity
+                 (65,536 rows for its 50,000 surfels), 40 train_stage1
+                 steps at the snug instance cap (auto-grow on) that densify
+                 every 5 from 5 (percent_dense 0.01: clones and splits) and
+                 reset opacity every 20: each cadence's alive count equals
+                 what its report implies; clones, splits, prunes and a
+                 capacity doubling happen; each reset clamps opacity to
+                 0.01 with zero moments; params, moments and losses finite;
+                 B1-B4 launched on every step.  densify_and_prune on the
+                 card against the CPU on the first cadence's state with the
+                 same noise (masks and counts equal, values within
+                 TOL_DENSIFY), and its time with a stage-1 step's at 65,536
+                 and 131,072 rows with the same surfels alive.
+  25. cli        a Blender-layout scene written to a temporary directory (8
+                 RGBA 800x800 frames rendered on the card, no point cloud),
+                 then python -m svgir_tpu_torch.cli.train's main: stage 1
+                 for 60 iterations from the 100,000 bootstrap points in
+                 morton order, densify every 10 from 10, opacity reset at
+                 60, checkpoints at 30 and 60, the snug cap probe
+                 (--max_instances 0); the same
+                 run resumed from chkpnt30.npz (Adam step equal; alive
+                 count, loss and the norms of each parameter group and its
+                 second moment within TOL_RESUME_*); stage 2 from
+                 chkpnt60.npz for 3 iterations
+                 at --sample_num 64 --env_resolution 32.  Output files,
+                 finite logs, kernel launches (B8 in the bake), and the
+                 seconds of scene load, probe, loop, checkpoint write and
+                 read, and bake.
+
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
 """
@@ -394,10 +424,11 @@ def host_ms(fn, reps=10, warmup=2) -> float:
     return statistics.median(times)
 
 
-def bench_scene(device, n=50_000, res=800, seed=0, inward=False):
+def bench_scene(device, n=50_000, res=800, seed=0, inward=False, capacity=0):
     """The scene of bench.py, with its random draws from torch; with
     ``inward`` the same surfels face the ball's centre (bake rays then
-    meet front faces across the shell)."""
+    meet front faces across the shell).  ``capacity`` 0 is ``n`` rows,
+    None ``init_from_points``' default."""
     import torch
 
     from svgir_tpu_torch.cameras import look_at_camera
@@ -410,7 +441,8 @@ def bench_scene(device, n=50_000, res=800, seed=0, inward=False):
     cols = torch.rand(n, 3, generator=g, device=device)
     gt = torch.rand(3, res, res, generator=g, device=device)
     state = G.init_from_points(dirs * r, cols,
-                               normals=-dirs if inward else dirs, capacity=n,
+                               normals=-dirs if inward else dirs,
+                               capacity=n if capacity == 0 else capacity,
                                rotation_init="normal", device=device)
     cam = look_at_camera(eye=[0.5, 0.4, -2.6], target=[0, 0, 0],
                          up=[0, -1, 0], fovx=math.pi / 3, fovy=math.pi / 3,
@@ -2241,6 +2273,371 @@ def run_tiles(state, cam, opt, cfg, bg, card, dev, *, step8, s2,
     return report
 
 
+# ---------------------------------------------------------------------------
+# densification and the training CLI
+# ---------------------------------------------------------------------------
+
+# densify_and_prune on the card against the CPU, on one state with the same
+# split noise: the decisions are comparisons of the same float32 values, so
+# masks and counts are equal; placed values pass through exp, log and the
+# rotation, which the devices round a last place apart.
+TOL_DENSIFY = 1e-6      # absolute and relative, params and Adam moments
+# The CLI's stage-1 run resumed from its checkpoint at 30 against the
+# uninterrupted run to 60: the card's scatter-adds sum in another order
+# from run to run (ROADMAP hazard 6), which can move a densify decision at
+# its threshold, so the two runs are held close, not equal.  The Adam step
+# count must be equal (a resume at the wrong iteration, or with the
+# learning-rate schedule restarted, runs another number of steps).  The
+# norms over the alive rows of each parameter group and of its second Adam
+# moment are blind to the order of the rows; a resume that dropped the
+# moments would leave the second moment with 30 steps of gradients instead
+# of 60.  Readings on an H100 (alive 93,895 against 93,897): loss 2.1e-7
+# relative, the norms up to 3.9e-4 (the xyz second moment; the scaling
+# norm 3.5e-4, which the -1e10 log-scales of split children dominate, so
+# that it moves by about 9e-5 for each such row gained or lost).
+TOL_RESUME_ALIVE = 1e-3  # share of the alive count
+TOL_RESUME_LOSS = 1e-3   # relative, the last logged loss
+TOL_RESUME_NORM = 1e-2   # relative, each norm
+
+
+def _resume_norms(res):
+    """The norms over the alive rows of each parameter group and of its
+    second Adam moment, from train_stage1's (state, opt_state, ...)."""
+    state, opt_state = res[0], res[1]
+    alive = state["alive"]
+    out = {f"param/{k}": float(v[alive].double().norm())
+           for k, v in state["params"].items()}
+    out.update({f"v/{k}": float(v[alive].double().norm())
+                for k, v in opt_state["v"].items()})
+    return out
+
+
+def _densify_expected(n_before, rep, cap):
+    """The alive count densify_and_prune's report implies: the survivors
+    (alive, less the pruned and the split originals) plus the children that
+    found a free slot."""
+    surv = n_before - int(rep["n_prune"]) - int(rep["n_split"])
+    want = int(rep["n_clone"]) + 2 * int(rep["n_split"])
+    return surv + min(want, cap - surv)
+
+
+def densify_vs_cpu(a, kw):
+    """densify_and_prune on the card (its arguments ``a``: state, Adam
+    state and split noise, and keywords ``kw``) against the same call on
+    CPU copies of them; returns (the largest difference in units of its
+    allowance, where)."""
+    import torch
+
+    from svgir_tpu_torch.models import gaussians as G
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cpu(v) for v in x]
+        return x
+
+    out_d = G.densify_and_prune(*a, **kw)
+    out_c = G.densify_and_prune(*cpu(list(a)), **kw)
+    for k in out_c[2]:
+        if int(out_d[2][k]) != int(out_c[2][k]):
+            raise AssertionError(f"densify card vs CPU: {k} "
+                                 f"{int(out_d[2][k])} != {int(out_c[2][k])}")
+    if not torch.equal(out_d[0]["alive"].cpu(), out_c[0]["alive"]):
+        raise AssertionError("densify card vs CPU: alive masks differ")
+    pairs = [(f"param {k}", out_d[0]["params"][k], out_c[0]["params"][k])
+             for k in out_c[0]["params"]]
+    pairs += [(f"moment {m} of {k}", out_d[1][m][k], out_c[1][m][k])
+              for m in ("m", "v") for k in out_c[1][m]]
+    # each difference in units of its allowance (TOL_DENSIFY (1 + |cpu|))
+    worst = max((float(((d.cpu().double() - c.double()).abs()
+                        / (TOL_DENSIFY * (1 + c.double().abs()))).max()), w)
+                for w, d, c in pairs)
+    if worst[0] > 1.0:
+        raise AssertionError(f"densify card vs CPU: {worst[1]} differs by "
+                             f"{worst[0]:.3g} x its allowance")
+    return worst
+
+
+def write_blender_scene(root, state, dev, n_frames=8, res=800):
+    """A Blender-layout scene in ``root``: ``n_frames`` RGBA PNG frames of
+    the bench surfels rendered on the card from a ring of cameras, their
+    ``transforms_train.json``, and no point cloud (the reader bootstraps
+    100,000 random points)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from svgir_tpu_torch.cameras import look_at_camera
+    from svgir_tpu_torch.config import RasterConfig
+    import cv2
+    from svgir_tpu_torch.render.stage1 import render_view_stage1
+
+    os.makedirs(os.path.join(root, "train"))
+    fov = math.pi / 3
+    frames = []
+    bg = torch.zeros(3, device=dev)
+    for i in range(n_frames):
+        a = 2 * math.pi * i / n_frames
+        eye = [2.6 * math.sin(a), 0.4 * math.cos(3 * a), -2.6 * math.cos(a)]
+        cam = look_at_camera(eye=eye, target=[0, 0, 0], up=[0, -1, 0],
+                             fovx=fov, fovy=fov, width=res, height=res,
+                             device=dev)
+        with torch.no_grad():
+            r = render_view_stage1(cam, state["params"], bg,
+                                   alive=state["alive"], cfg=RasterConfig())
+        alpha = r["opacity"].clamp(0, 1)
+        rgb = (r["render"] / alpha.clamp(min=1e-6)).clamp(0, 1)
+        rgba = torch.cat([rgb, alpha]).permute(1, 2, 0)
+        rgba8 = (rgba * 255 + 0.5).to(torch.uint8).cpu().numpy()
+        if not cv2.imwrite(os.path.join(root, "train", f"r_{i}.png"),
+                           cv2.cvtColor(rgba8, cv2.COLOR_RGBA2BGRA)):
+            raise RuntimeError(f"cv2 could not write frame {i}")
+        # OpenCV axes (x right, y down, z forward) -> Blender's (y up, z
+        # back): the reader flips the two columns back
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.linalg.inv(cam.world_view[:3, :3].cpu().numpy()
+                                    .astype(np.float64))
+        c2w[:3, 3] = eye
+        c2w[:3, 1:3] *= -1
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    import json
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": fov, "frames": frames}, f)
+
+
+def run_trainer(card, dev):
+    """Phases 24-25: densification at full width and the training CLI."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.cli import train as cli
+    from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+    from svgir_tpu_torch.data import readers
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.train import cap_probe, optim, trainer
+    from svgir_tpu_torch.train import checkpoint as CK
+
+    t_phase = time.time()
+    # ---- 24. densify: train_stage1 with the cadence at full width -------
+    # the bench scene at init_from_points' capacity for 50,000 (65,536).
+    # percent_dense is the median of the surfels' largest start scales
+    # (extent 1), so about half clone and half split; a zero gradient
+    # threshold makes every surfel act (as tests/test_guards.py's), so the
+    # children outnumber the free rows and the loop grows the capacity
+    state, cam = bench_scene(dev, capacity=None)
+    cap0 = state["alive"].shape[0]
+    if cap0 != G._round_capacity(int(state["alive"].sum())):
+        raise AssertionError(f"densify: capacity {cap0} is not "
+                             "init_from_points' default")
+    iters = 40
+    scale_med = float(G.get_scaling(state["params"]).max(1).values[
+        state["alive"]].median())
+    opt = OptimizationConfig(
+        densify_from_iter=5, densification_interval=5,
+        opacity_reset_interval=20, percent_dense=scale_med,
+        densify_grad_threshold=0.0, position_lr_max_steps=iters)
+    cfg = RasterConfig(max_instances=cap_probe.snug_instance_cap(
+        state["params"], [cam], RasterConfig(), alive=state["alive"]))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(G, "densify_and_prune") as rec_d, \
+            Recorder(G, "reset_opacity") as rec_r, \
+            Recorder(G, "grow_capacity") as rec_g:
+        st, ost, hist = trainer.train_stage1(
+            state, [cam], opt, raster_cfg=cfg, iterations=iters,
+            log_every=1, device=dev)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    check_launches(launches, "densify run", at_least=[
+        (k, iters) for k in STAGE1_KERNELS])
+    for h in hist:
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"densify run: bad step {h}")
+    for k, v in list(st["params"].items()) + list(ost["m"].items()) + \
+            list(ost["v"].items()):
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"densify run: non-finite values in {k}")
+    alive_at = {h["iter"]: h["n_alive"] for h in hist}
+    events = {"clone": 0, "split": 0, "prune": 0}
+    for (a, kw, out, sec) in rec_d.calls:
+        n_before = int(a[0]["alive"].sum())
+        cap = a[0]["alive"].shape[0]
+        rep = out[2]
+        want = _densify_expected(n_before, rep, cap)
+        if int(rep["n_alive"]) != want or \
+                int(out[0]["alive"].sum()) != want:
+            raise AssertionError(f"densify: alive {int(rep['n_alive'])}, "
+                                 f"the report implies {want}")
+        for k in events:
+            events[k] += int(rep[f"n_{k}"])
+        log(f"[densify] cap {cap}: alive {n_before} -> {want} (clone "
+            f"{int(rep['n_clone'])}, split {int(rep['n_split'])}, prune "
+            f"{int(rep['n_prune'])}, out of capacity "
+            f"{bool(rep['out_of_capacity'])}), {sec * 1e3:.2f} ms")
+    if len(rec_d.calls) != ((iters - opt.densify_from_iter)
+                            // opt.densification_interval):
+        raise AssertionError(f"densify ran {len(rec_d.calls)} times")
+    if not all(events.values()) or not rec_g.calls:
+        raise AssertionError(f"densify run lacks an event: {events}, "
+                             f"{len(rec_g.calls)} capacity doublings")
+    for (a, kw, out, sec) in rec_r.calls:
+        top = float(G.get_opacity(out[0]).max())
+        if top > 0.01 * (1 + 1e-6) or bool(out[1]["m"]["opacity"].any()):
+            raise AssertionError(f"opacity reset: max opacity {top}")
+    if len(rec_r.calls) != 2:
+        raise AssertionError(f"opacity reset ran {len(rec_r.calls)} times")
+    log(f"[densify] percent_dense {scale_med:.6g}, densify_grad_threshold "
+        f"{opt.densify_grad_threshold}")
+    log(f"[densify] {iters} steps in {loop_s:.2f} s: alive "
+        f"{int(state['alive'].sum())} -> {int(st['alive'].sum())}, capacity "
+        f"{cap0} -> {st['alive'].shape[0]} ({len(rec_g.calls)} doublings), "
+        f"instance cap {cfg.max_instances}; events {events}; launches "
+        f"{launches}; alive by iteration {alive_at}")
+
+    # densify_and_prune on the card against the CPU, on the state of the
+    # first cadence, the same noise injected
+    a, kw, _, _ = rec_d.calls[0]
+    worst = densify_vs_cpu(a, kw)
+    log(f"[densify] card == CPU on the first cadence's state (cap "
+        f"{a[0]['alive'].shape[0]}): masks and counts equal, largest "
+        f"difference {worst[0]:.3g} x {TOL_DENSIFY} (1 + |cpu|) "
+        f"({worst[1]})")
+    # its time at 65,536 and 131,072 rows, and a step's at each with the
+    # same surfels alive
+    step = trainer.make_train_step(opt, cfg, torch.zeros(3, device=dev),
+                                   lrs=optim.group_lrs(opt, 1.0), device=dev)
+    for grown in (False, True):
+        s_, o_ = a[0], a[1]
+        if grown:
+            s_, o_ = G.grow_capacity(s_, o_, 2 * s_["alive"].shape[0])
+        cap = s_["alive"].shape[0]
+        nz = torch.randn(2, cap, 3, device=dev,
+                         generator=torch.Generator(dev).manual_seed(9))
+        fn = (lambda s_=s_, o_=o_, nz=nz: G.densify_and_prune(
+            s_, o_, nz, **kw))
+        d_ms = cuda_ms(fn, reps=10)
+        d_dev = device_ms(fn, reps=10)[0]
+        s_ms = host_ms(lambda s_=s_, o_=o_: step(s_, o_, cam, 10.0, 1e-4),
+                       reps=10)
+        log(f"[densify] capacity {cap} ({int(s_['alive'].sum())} alive): "
+            f"densify_and_prune {d_ms:.3f} ms per call, {d_dev:.3f} ms on "
+            f"the device; stage-1 step {s_ms:.3f} ms; card: {card}")
+    log(f"[densify] {time.time() - t_phase:.1f} s")
+
+    # ---- 25. the CLI: stage 1 at 800 x 800, its resume, stage 2 ----------
+    t_cli = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        write_blender_scene(scene, state, dev)
+        out_a, out_b, out_c = (os.path.join(tmp, d) for d in "abc")
+        # the bootstrap's random points start as wide splats, and the
+        # size gate (20 pixels, active past the first opacity reset)
+        # prunes nearly all of them within 60 iterations when the reset
+        # comes at 30, leaving too few surfels for the bake's grid march;
+        # so the reset comes at 60 and this run never applies the gate
+        # (phase 24 does, from its first reset at 20)
+        flags = ["-s", scene, "--iterations", "60", "--densify_from_iter",
+                 "10", "--densification_interval", "10",
+                 "--opacity_reset_interval", "60", "--checkpoint_interval",
+                 "30", "--max_instances", "0", "--position_lr_max_steps",
+                 "60", "--quiet"]
+
+        def run(argv, label, kernels_needed):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with Recorder(readers, "load_scene") as r_load, \
+                    Recorder(cap_probe, "snug_instance_cap") as r_probe, \
+                    Recorder(trainer, "train_stage1") as r_s1, \
+                    Recorder(trainer, "train_stage2") as r_s2, \
+                    Recorder(trainer, "bake_radiance_compact") as r_bake, \
+                    Recorder(CK, "save_checkpoint") as r_save, \
+                    Recorder(CK, "load_checkpoint") as r_ld:
+                t0 = time.perf_counter()
+                cli.main(argv)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+            lc = kernels.launches()
+            check_launches(lc, label, at_least=[(k, 1)
+                                                for k in kernels_needed])
+
+            def secs(r):
+                return sum(c[3] for c in r.calls)
+            save_in = sum(c[3] for c in r_save.calls[:-1])
+            loop = secs(r_s1) + secs(r_s2) - secs(r_bake) - save_in
+            out = argv[argv.index("-m") + 1]
+            with open(os.path.join(out, "train_log.jsonl")) as f:
+                log_ = [json.loads(line) for line in f]
+            for e in log_:
+                if not math.isfinite(e["loss"]):
+                    raise AssertionError(f"{label}: bad log entry {e}")
+            for name in ("cfg_args.json", "cameras.json", "point_cloud.ply",
+                         "train_log.jsonl", f"chkpnt{argv[argv.index('--iterations') + 1]}.npz"):
+                if not os.path.exists(os.path.join(out, name)):
+                    raise AssertionError(f"{label}: no {name}")
+            res = (r_s1.calls or r_s2.calls)[0][2]
+            cap = res[0]["alive"].shape[0]
+            log(f"[cli] {label}: {total:.2f} s: scene load "
+                f"{secs(r_load):.2f} s, probe {secs(r_probe):.2f} s (cap "
+                f"{r_probe.calls[0][2]}), loop {loop:.2f} s, checkpoint "
+                f"write {secs(r_save):.2f} s ({len(r_save.calls)}) / read "
+                f"{secs(r_ld):.2f} s, bake {secs(r_bake):.2f} s; capacity "
+                f"at the end {cap}, alive {int(res[0]['alive'].sum())} "
+                f"(by logged iteration: "
+                f"{[(e['iter'], e.get('n_alive')) for e in log_]}); "
+                f"launches {lc}; card: {card}")
+            return log_, res, r_load.calls[0][2]
+
+        log_a, res_a, sc = run(flags + ["-m", out_a],
+                               "stage 1, 60 iterations", STAGE1_KERNELS)
+        if sc.points.shape[0] != readers.BOOTSTRAP_POINTS:
+            raise AssertionError(f"cli: the start cloud has "
+                                 f"{sc.points.shape[0]} points, not the "
+                                 f"{readers.BOOTSTRAP_POINTS} of the "
+                                 "bootstrap")
+        log_b, res_b, _ = run(flags + ["-m", out_b, "-c", os.path.join(
+            out_a, "chkpnt30.npz")], "stage 1 resumed at 30", STAGE1_KERNELS)
+        na, nb = int(res_a[0]["alive"].sum()), int(res_b[0]["alive"].sum())
+        la, lb = log_a[-1]["loss"], log_b[-1]["loss"]
+        sa, sb = res_a[1]["step"], res_b[1]["step"]
+        norms_a, norms_b = _resume_norms(res_a), _resume_norms(res_b)
+        # a group the loss has not reached yet (shs_rest at SH degree 0)
+        # has zero moments in both runs
+        rel = {k: abs(norms_b[k] - norms_a[k]) / norms_a[k] if norms_a[k]
+               else float(norms_b[k] != 0.0) for k in norms_a}
+        log(f"[cli] resumed against uninterrupted at 60: Adam step {sb} vs "
+            f"{sa}, alive {nb} vs {na}, loss {lb!r} vs {la!r}, norms over "
+            f"the alive rows (resumed, uninterrupted, relative difference): "
+            + ", ".join(f"{k} {norms_b[k]!r} {norms_a[k]!r} {rel[k]:.3e}"
+                        for k in norms_a))
+        bad = [k for k, r in rel.items() if not r <= TOL_RESUME_NORM]
+        if sa != sb or abs(na - nb) > TOL_RESUME_ALIVE * na or \
+                abs(la - lb) > TOL_RESUME_LOSS * abs(la) or bad:
+            raise AssertionError(f"cli resume: step {sb} vs {sa}, alive {nb} "
+                                 f"vs {na}, loss {lb} vs {la}, norms off "
+                                 f"{bad}")
+        log_c, _, _ = run(["-s", scene, "-m", out_c, "-t", "render_relight",
+                        "-c", os.path.join(out_a, "chkpnt60.npz"),
+                        "--iterations", "63", "--sample_num", "64",
+                        "--env_resolution", "32", "--max_instances", "0",
+                        "--position_lr_max_steps", "63", "--quiet"],
+                       "stage 2 from chkpnt60, S = 64, env 32x64",
+                       STAGE2_KERNELS + ("march",))
+        log(f"[cli] stage 2: psnr_pbr {log_c[-1]['psnr_pbr']:.4f}, loss "
+            f"{log_c[-1]['loss']:.6f}")
+    log(f"[cli] {time.time() - t_cli:.1f} s")
+
+
 def blend_extras(report, calls, label, ptx, parents, card, names=None):
     """Adds to the blend entries of ``report`` (B3 and B4 on ``calls``) the
     kernel each launch takes with its registers and spills and, with
@@ -2920,6 +3317,9 @@ def main() -> int:
         step8=(step, (state, ost0, cam, 1.0, 1.6e-4)),
         s2=(s2_state, bake, env0, step2, s2_args), edge_calls=edge_calls,
         ptx=ptx, parents=parents, profile_dir=out_dir))
+
+    # ---- 24-25. densification and the training CLI -------------------------
+    run_trainer(card, dev)
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

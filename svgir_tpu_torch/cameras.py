@@ -7,6 +7,7 @@ Mirrors ``svgir_tpu.cameras``: matrices in math convention
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -116,6 +117,49 @@ def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
         image=_tensor(image, device), image_mask=_tensor(image_mask, device),
         depth=_tensor(depth, device), normal=_tensor(normal, device),
         mono=_tensor(mono, device))
+
+
+def area_resize(img: torch.Tensor, w: int, h: int,
+                name: str = "image") -> torch.Tensor:
+    """``cv2.resize(..., interpolation=cv2.INTER_AREA)`` of [C, H, W] to
+    [C, h, w].  A whole-number factor, the same on both axes, is an average
+    over k x k blocks (``F.avg_pool2d``, on the tensor's device); any other
+    size goes through OpenCV, and raises ``ImportError`` naming ``name``
+    where OpenCV is absent."""
+    _, h0, w0 = img.shape
+    if (h0, w0) == (h, w):
+        return img
+    k = w0 // w if w else 0
+    if k >= 1 and (w * k, h * k) == (w0, h0):
+        return torch.nn.functional.avg_pool2d(img[None], k)[0]
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(f"resizing {name} from {w0}x{h0} to {w}x{h} needs "
+                          "OpenCV (cv2), which is not installed") from exc
+    out = cv2.resize(img.permute(1, 2, 0).cpu().numpy(), (w, h),
+                     interpolation=cv2.INTER_AREA)
+    if out.ndim == 2:
+        out = out[..., None]
+    return torch.as_tensor(out.transpose(2, 0, 1).copy(), device=img.device)
+
+
+def camera_at_scale(cam: Camera, scale: float) -> Camera:
+    """Downscaled copy of ``cam`` (the reference Scene's resolution scales
+    [1, 4, 8], scene/__init__.py:29,90-95): the same field of view, pixel
+    sizes divided by ``scale``, every image-plane tensor area-resampled."""
+    if scale in (1, 1.0):
+        return cam
+    w, h = int(cam.width / scale), int(cam.height / scale)
+
+    def rs(img):
+        return None if img is None else area_resize(
+            img, w, h, cam.image_name or "a camera image")
+
+    return dataclasses.replace(
+        cam, width=w, height=h, image=rs(cam.image),
+        image_mask=rs(cam.image_mask), depth=rs(cam.depth),
+        normal=rs(cam.normal), mono=rs(cam.mono))
 
 
 def look_at_camera(eye, target, up, fovx: float, fovy: float,

@@ -3,10 +3,14 @@
 Field names and defaults are those of ``svgir_tpu.config`` (the reference's
 ``arguments/__init__.py`` ParamGroups); the defaults are the trained recipe
 and must not drift.  ``tests/test_torch_foundations.py`` holds them equal.
+``add_to_parser``/``from_args`` bridge a config class and argparse with the
+same flags and shorthands as ``svgir_tpu.config``.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
 
 
@@ -24,6 +28,19 @@ class ModelConfig:
     debug_subset: bool = False
     global_shs_degree: int = 3
     env_resolution: int = 16
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Reference: ``arguments/__init__.py:60-69`` (PipelineParams)."""
+
+    compute_shs_python: bool = False
+    compute_cov3d_python: bool = False
+    tracing: bool = False
+    sample_num: int = 64
+    debug: bool = False
+    save_training_vis: bool = False
+    save_training_vis_iteration: int = 1000
 
 
 @dataclass(frozen=True)
@@ -127,3 +144,35 @@ class RasterConfig:
     binner: str = "counting"
     rect_cap: int = 16
     strip: int = 8
+
+
+# ---------------------------------------------------------------------------
+# argparse bridge (the reference's ParamGroup reflection)
+# ---------------------------------------------------------------------------
+
+_SHORTHAND = {  # the reference's leading "_" fields: one-letter aliases
+    "source_path": "-s",
+    "model_path": "-m",
+    "images": "-i",
+    "resolution": "-r",
+    "white_background": "-w",
+}
+
+
+def add_to_parser(cls, parser: argparse.ArgumentParser, name: str) -> None:
+    group = parser.add_argument_group(name)
+    for f in dataclasses.fields(cls):
+        flag = "--" + f.name
+        aliases = [_SHORTHAND[f.name]] if f.name in _SHORTHAND else []
+        if f.type in ("bool", bool):
+            group.add_argument(flag, *aliases, default=f.default,
+                               action="store_true")
+        else:
+            typ = {"int": int, "float": float, "str": str}.get(
+                f.type, type(f.default))
+            group.add_argument(flag, *aliases, default=f.default, type=typ)
+
+
+def from_args(cls, args: argparse.Namespace):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in vars(args).items() if k in names})

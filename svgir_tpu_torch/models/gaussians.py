@@ -10,7 +10,9 @@ packages compute the same thing in the tests.
 The stage-2 groups (per-vertex base color, roughness and normal offsets,
 the baked radiances and their ratio) come from ``upgrade_to_pbr`` and the
 stage-2 trainer.  Densification (``densify_and_prune``, ``reset_opacity``,
-``grow_capacity``) is not ported yet.
+``grow_capacity``) keeps the reference's fixed-shape semantics: clones and
+split children are scattered into the free slots of the capacity in index
+order, on the state's device, with no host round trip.
 """
 
 from __future__ import annotations
@@ -98,15 +100,57 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def _expand_bits(v: np.ndarray) -> np.ndarray:
+    """Spread the low 10 bits of ``v`` (uint32) two zeros apart."""
+    v = (v * np.uint32(0x00010001)) & np.uint32(0xFF0000FF)
+    v = (v * np.uint32(0x00000101)) & np.uint32(0x0F00F00F)
+    v = (v * np.uint32(0x00000011)) & np.uint32(0xC30C30C3)
+    v = (v * np.uint32(0x00000005)) & np.uint32(0x49249249)
+    return v
+
+
+def morton_codes(points: np.ndarray) -> np.ndarray:
+    """30-bit morton codes of ``points`` [N, 3] normalised into their
+    bounding box, x in the highest bit of each triple: float32 arithmetic
+    as ``native/svgir_native.cpp`` ``svgir_morton3d`` does it."""
+    pts = np.asarray(points, np.float32)
+    lo = pts.min(axis=0)
+    inv = np.float32(1.0) / np.maximum(pts.max(axis=0) - lo,
+                                       np.float32(1e-12))
+    v = np.clip((pts - lo) * inv, np.float32(0.0), np.float32(0.99999))
+    c = _expand_bits((v * np.float32(1024.0)).astype(np.uint32))
+    return (c[:, 0] << np.uint32(2)) | (c[:, 1] << np.uint32(1)) | c[:, 2]
+
+
 def init_from_points(points, colors, normals=None, *, sh_degree: int = 3,
                      capacity: Optional[int] = None, mean_sq_dist=None,
                      rotation_init: str = "identity",
+                     morton_order: bool = False,
                      device="cuda") -> Dict[str, Any]:
     """create_from_pcd (gaussian_model.py:695-735) with padded capacity.
 
     ``mean_sq_dist``: mean squared distance to the 3 nearest neighbours
     (simple-knn distCUDA2); computed brute-force when not given.
+    ``morton_order``: sort the cloud by 30-bit morton code first (the
+    spatial order simple-knn applies), so that index-adjacent Gaussians
+    stay spatially adjacent and a chunk of the counting binner touches a
+    coherent set of tiles.
     """
+    if morton_order:
+        pts_h = (points.detach().cpu().numpy()
+                 if isinstance(points, torch.Tensor) else points)
+        order = torch.as_tensor(
+            np.argsort(morton_codes(pts_h), kind="stable"))
+
+        def reorder(x):
+            if x is None:
+                return None
+            if isinstance(x, torch.Tensor):
+                return x[order.to(x.device)]
+            return np.asarray(x)[order.numpy()]
+        points, colors, normals, mean_sq_dist = (
+            reorder(points), reorder(colors), reorder(normals),
+            reorder(mean_sq_dist))
     points = _as_tensor(points, device)
     colors = _as_tensor(colors, device)
     normals = None if normals is None else _as_tensor(normals, device)
@@ -206,6 +250,169 @@ def add_densification_stats(stats, mean2d_grad_ndc, update_filter, weights,
         update_filter, torch.maximum(stats["max_radii2d"], radii),
         stats["max_radii2d"])
     return stats
+
+
+def num_alive(state) -> torch.Tensor:
+    return state["alive"].sum()
+
+
+# ---------------------------------------------------------------------------
+# densification (gaussian_model.py:1136-1268; train.py:194-209)
+# ---------------------------------------------------------------------------
+
+def _free_slots(free: torch.Tensor) -> torch.Tensor:
+    """Indices of the True entries of ``free`` in index order, then cap-1
+    (``jnp.nonzero(free, size=cap, fill_value=cap - 1)``), without reading
+    their count on the host."""
+    cap = free.shape[0]
+    rank = torch.cumsum(free.to(torch.int64), 0) - 1
+    out = torch.full((cap + 1,), cap - 1, dtype=torch.int64,
+                     device=free.device)
+    # every non-free row writes to the extra entry cap, which is dropped
+    out.scatter_(0, torch.where(free, rank, cap),
+                 torch.arange(cap, device=free.device))
+    return out[:cap]
+
+
+def _place(x: torch.Tensor, dst: torch.Tensor, src: torch.Tensor):
+    """``x`` with rows ``src[i]`` written at ``dst[i]``; rows with
+    ``dst == cap`` are dropped (``.at[dst].set(src, mode="drop")``)."""
+    out = torch.cat([x, x[:1]])
+    out.index_copy_(0, dst, src)
+    return out[:x.shape[0]]
+
+
+@torch.no_grad()
+def densify_and_prune(state: Dict[str, Any], opt_state: Dict,
+                      noise: Optional[torch.Tensor] = None, *,
+                      max_grad: float, min_opacity: float, extent: float,
+                      max_screen_size: Optional[float],
+                      max_grad_normal: float = 99999.0,
+                      percent_dense: float = 0.001,
+                      weights_threshold: float = 1e-5, n_split: int = 2,
+                      generator: Optional[torch.Generator] = None):
+    """Clone, split and prune in one fixed-shape pass
+    (gaussian_model.py:1229-1268).
+
+      clone  if |grad| >= max_grad and max(scale) <= percent_dense*extent
+      split  if |grad| >= max_grad and max(scale) >  percent_dense*extent
+             (``n_split`` children drawn from the Gaussian, scales
+             / (0.8 n_split), z log-scale -1e10; the original dies)
+      prune  if opacity < min_opacity or weights_accum < weights_threshold
+             or, with ``max_screen_size``, radii2d > max_screen_size or
+             max(scale) > 0.1 extent
+
+    Clones take the first free slots in index order, then child 0 of each
+    split source, then child 1, ...; sources past the free slots are
+    dropped and ``report["out_of_capacity"]`` says so.  Placed rows get
+    zero Adam moments; the statistics are reset.
+
+    ``noise`` [n_split, cap, 3]: standard-normal draws for the children's
+    offsets; drawn with ``generator`` when not given.  Returns (state,
+    opt_state, report) with the report's counts as 0-d tensors.
+    """
+    params, alive, stats = state["params"], state["alive"], state["stats"]
+    cap, dev = alive.shape[0], alive.device
+    if noise is None:
+        noise = torch.randn(n_split, cap, 3, generator=generator, device=dev)
+
+    def mean_grad(accum):
+        g = accum / torch.clamp(stats["denom"], min=1e-12)
+        return torch.nan_to_num(g[:, 0], nan=0.0)
+
+    grads, grads_n = (mean_grad(stats["xyz_gradient_accum"]),
+                      mean_grad(stats["normal_gradient_accum"]))
+    scaling = get_scaling(params)
+    max_scale = scaling.max(dim=1).values
+    hot = ((grads >= max_grad) | (grads_n >= max_grad_normal)) & alive
+    small = max_scale <= percent_dense * extent
+    clone_mask, split_mask = hot & small, hot & ~small
+
+    # prune the originals; split originals die too
+    prune = ((get_opacity(params)[:, 0] < min_opacity)
+             | (stats["weights_accum"][:, 0] < weights_threshold))
+    if max_screen_size is not None:
+        prune |= stats["max_radii2d"] > max_screen_size
+        prune |= max_scale > 0.1 * extent
+    prune = (prune | split_mask) & alive
+    survivors = alive & ~prune
+    free = ~survivors
+    free_idx = _free_slots(free)
+    free_count = free.sum()
+
+    n_clone, n_split_src = clone_mask.sum(), split_mask.sum()
+    clone_rank = torch.cumsum(clone_mask.to(torch.int64), 0) - 1
+    split_rank = torch.cumsum(split_mask.to(torch.int64), 0) - 1
+
+    def slots(src_mask, slot_rank):
+        ok = src_mask & (slot_rank < free_count)
+        return torch.where(ok, free_idx[slot_rank.clamp(0, cap - 1)], cap)
+
+    # sources laid out as [clones, child 0 of each split, child 1, ...]
+    dst = torch.cat([slots(clone_mask, clone_rank)] + [
+        slots(split_mask, n_clone + i * n_split_src + split_rank)
+        for i in range(n_split)])
+    rot_mat = quat_to_rotmat(get_rotation(params))
+    child_xyz = [params["xyz"]
+                 + (rot_mat @ (noise[i] * scaling)[..., None])[..., 0]
+                 for i in range(n_split)]
+    child_scaling = torch.log(scaling / (0.8 * n_split))
+    child_scaling[:, 2] = -1e10
+
+    def children(name, x):
+        if name == "xyz":
+            return child_xyz
+        return [child_scaling if name == "scaling" else x] * n_split
+
+    new_params = {k: _place(x, dst, torch.cat([x] + children(k, x)))
+                  for k, x in params.items()}
+    placed = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    placed[dst] = True
+    placed = placed[:cap]
+
+    def zero_placed(t):
+        return t.masked_fill(placed.view((cap,) + (1,) * (t.dim() - 1)), 0)
+
+    new_alive = survivors | placed
+    new_opt = {**opt_state,
+               "m": {k: zero_placed(v) for k, v in opt_state["m"].items()},
+               "v": {k: zero_placed(v) for k, v in opt_state["v"].items()}}
+    report = {
+        "n_clone": n_clone,
+        "n_split": n_split_src,
+        "n_prune": (prune & ~split_mask).sum(),
+        "n_alive": new_alive.sum(),
+        "out_of_capacity": n_clone + n_split * n_split_src > free_count,
+    }
+    return ({"params": new_params, "alive": new_alive,
+             "stats": init_stats(cap, device=dev)}, new_opt, report)
+
+
+@torch.no_grad()
+def reset_opacity(params, opt_state):
+    """opacity <- min(opacity, 0.01) and zero its Adam moments
+    (gaussian_model.py:886-889, replace_tensor_to_optimizer)."""
+    new_opac = inverse_sigmoid(torch.clamp(get_opacity(params), max=0.01))
+    zeros = torch.zeros_like(new_opac)
+    return ({**params, "opacity": new_opac},
+            {**opt_state, "m": {**opt_state["m"], "opacity": zeros},
+             "v": {**opt_state["v"], "opacity": zeros.clone()}})
+
+
+def grow_capacity(state, opt_state, new_cap: int):
+    """Pad every per-Gaussian tensor with zero rows (dead, zero moments) to
+    ``new_cap`` rows."""
+    def pad(x):
+        return torch.cat([x, x.new_zeros((new_cap - x.shape[0],)
+                                         + tuple(x.shape[1:]))])
+
+    def pad_all(d):
+        return {k: pad(v) for k, v in d.items()}
+
+    return ({"params": pad_all(state["params"]), "alive": pad(state["alive"]),
+             "stats": pad_all(state["stats"])},
+            {**opt_state, "m": pad_all(opt_state["m"]),
+             "v": pad_all(opt_state["v"])})
 
 
 # ---------------------------------------------------------------------------

@@ -2,22 +2,23 @@
 
 Mirrors ``svgir_tpu.train.trainer`` (reference ``train.py:28-249``): a
 without-replacement camera schedule, the exponential xyz learning-rate
-schedule, Adam over the parameter groups, densification statistics and the
-binner-overflow growth of ``max_instances``.  Densification, opacity reset,
-checkpointing and staging are not ported yet: ``train_stage1`` raises
-``NotImplementedError`` at an iteration where a densify or opacity-reset
-cadence would act, instead of skipping it.  Stage 2 (``train_stage2``)
-starts with the radiance bake over the alive surfels
-(``bake_radiance_compact``), unless it is given one, and raises for the
-periodic checkpoint, test and visualization tasks.
+schedule, Adam over the parameter groups, densification statistics, the
+densify / prune / opacity-reset cadence with its capacity growth, the
+binner-overflow growth of ``max_instances``, cameras staged on the device
+once, and the periodic checkpoint and test-PSNR tasks.  Stage 2
+(``train_stage2``) starts with the radiance bake over the alive surfels
+(``bake_radiance_compact``), unless it is given one.  The periodic
+training visualisation (``vis_interval``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import random
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -25,10 +26,21 @@ from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models import lights as LT
 from svgir_tpu_torch.models import radiance as RAD
-from svgir_tpu_torch.render.stage1 import render_stage1
-from svgir_tpu_torch.render.svgss import render_svgss
+from svgir_tpu_torch.render.stage1 import render_stage1, render_view_stage1
+from svgir_tpu_torch.render.svgss import render_svgss, render_view_svgss
+from svgir_tpu_torch.train import checkpoint as CK
 from svgir_tpu_torch.train import optim
+from svgir_tpu_torch.train.staging import stage_cameras
 from svgir_tpu_torch.utils.transforms import get_expon_lr_fn
+
+N_SPLIT = 2          # children per split surfel (gaussian_model.py:1229)
+MIN_OPACITY = 0.005  # prune threshold of the densify cadence (train.py:203)
+MAX_TEST_VIEWS = 8   # test views of the periodic PSNR
+
+
+def strip_meta(camera):
+    """The camera without its per-view metadata (uid, image name)."""
+    return dataclasses.replace(camera, uid=0, image_name="")
 
 
 def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
@@ -98,19 +110,55 @@ def camera_for_iter(cams: List, it: int, seed: int):
     return cams[order[k]]
 
 
-def _densify_would_act(it: int, opt: OptimizationConfig, state,
-                       white_background: bool) -> bool:
-    """Whether the reference loop would densify or reset opacity after
-    iteration ``it`` (trainer.py / train.py:194-210)."""
-    if it >= opt.densify_until_iter:
-        return False
-    at_densify = (it > opt.densify_from_iter
-                  and it % opt.densification_interval == 0)
-    at_reset = (it % opt.opacity_reset_interval == 0
-                or (white_background and it == opt.densify_from_iter))
-    if not (at_densify or at_reset):
-        return False
-    return int(state["alive"].sum()) < opt.max_points
+class PeriodicTasks:
+    """Mid-run checkpoints and test PSNR (train.py:229-316): a
+    ``chkpnt<iter>.npz`` every ``checkpoint_interval`` iterations into
+    ``out_dir``, and the mean PSNR of up to ``MAX_TEST_VIEWS`` test views
+    every ``test_interval``.  The training visualisation
+    (save_training_vis, train.py:319-363) is not ported yet:
+    ``vis_interval`` must be 0."""
+
+    def __init__(self, *, out_dir: Optional[str] = None,
+                 checkpoint_interval: int = 0,
+                 test_cameras: Optional[List] = None,
+                 test_interval: int = 0, vis_interval: int = 0,
+                 device="cuda"):
+        if vis_interval:
+            raise NotImplementedError(
+                "the periodic training visualisation (eval/nvs."
+                "save_training_vis, ROADMAP Queue A 4) is not ported to "
+                "svgir_tpu_torch yet: vis_interval must be 0")
+        self.ckpt_iv = checkpoint_interval if out_dir else 0
+        self.test_cams = stage_cameras(
+            [strip_meta(c) for c in (test_cameras or [])[:MAX_TEST_VIEWS]],
+            device=device) if test_interval else []
+        self.test_iv = test_interval if self.test_cams else 0
+
+    @torch.no_grad()
+    def run(self, it: int, *, eval_fn: Callable,
+            save_fn: Callable) -> Dict[str, float]:
+        """Extra log entries ({} when nothing fired)."""
+        extras: Dict[str, float] = {}
+        if self.ckpt_iv and it % self.ckpt_iv == 0:
+            save_fn(it)
+            extras["checkpoint"] = float(it)
+        if self.test_iv and it % self.test_iv == 0:
+            psnrs = []
+            for cam in self.test_cams:
+                pred = torch.clamp(eval_fn(cam)["render"], 0, 1)
+                mse = torch.mean(torch.square(pred - cam.image))
+                psnrs.append(float(-10.0 * torch.log10(mse)))
+            extras["test_psnr"] = float(sum(psnrs) / len(psnrs))
+        return extras
+
+
+def _split_noise(seed: int, it: int, cap: int, device) -> torch.Tensor:
+    """The split children's standard-normal draws at iteration ``it``, from
+    a generator seeded by (seed, it), so a resumed run draws what an
+    uninterrupted one does."""
+    gen = torch.Generator(device=device).manual_seed(
+        seed * (1 << 32) + it)
+    return torch.randn(N_SPLIT, cap, 3, generator=gen, device=device)
 
 
 def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
@@ -118,12 +166,18 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
                  spatial_lr_scale: float = 1.0, sh_degree: int = 3,
                  first_iter: int = 0, iterations: Optional[int] = None,
                  seed: int = 0, log_every: int = 50, callback=None,
-                 opt_state=None, auto_grow_instances: bool = True,
-                 white_background: bool = False, device="cuda"):
+                 opt_state=None, out_dir: Optional[str] = None,
+                 checkpoint_interval: int = 0,
+                 test_cameras: Optional[List] = None,
+                 test_interval: int = 0, vis_interval: int = 0,
+                 auto_grow_instances: bool = True,
+                 white_background: bool = False,
+                 split_noise: Optional[Callable] = None, device="cuda"):
     """Run the stage-1 loop.  Returns (state, opt_state, history).
 
-    Raises ``NotImplementedError`` before an iteration after which the
-    densify or opacity-reset cadence would act (not ported yet).
+    ``split_noise(it, cap)`` -> [2, cap, 3] gives the split children's
+    standard-normal draws at a densify iteration; by default they come
+    from a generator seeded by ``seed`` and ``it``.
     """
     iterations = iterations or opt.iterations
     lrs = optim.group_lrs(opt, spatial_lr_scale)
@@ -134,6 +188,13 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
         max_steps=opt.position_lr_max_steps)
     if opt_state is None:
         opt_state = optim.adam_init(state["params"])
+    periodic = PeriodicTasks(
+        out_dir=out_dir, checkpoint_interval=checkpoint_interval,
+        test_cameras=test_cameras, test_interval=test_interval,
+        vis_interval=vis_interval, device=device)
+    if split_noise is None:
+        def split_noise(it, cap):
+            return _split_noise(seed, it, cap, device)
 
     def make(cfg, track_stats):
         return make_train_step(opt, cfg, bg, sh_degree=sh_degree, lrs=lrs,
@@ -141,25 +202,37 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
 
     step_fn = make(raster_cfg, True)
     step_fast = make(raster_cfg, False)
-    cams = [dataclasses.replace(c, uid=0, image_name="") for c in cameras]
+    cams = stage_cameras([strip_meta(c) for c in cameras], device=device)
+    extent = spatial_lr_scale  # cameras_extent == spatial_lr_scale (train.py)
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
+
+    def eval_fn(cam):
+        return render_view_stage1(cam, state["params"], bg_t,
+                                  sh_degree=sh_degree, alive=state["alive"],
+                                  cfg=raster_cfg)
+
+    def save_fn(i):
+        CK.save_checkpoint(os.path.join(out_dir, f"chkpnt{i}.npz"), i, state,
+                           opt_state)
 
     history = []
     t0 = time.time()
     for it in range(first_iter + 1, iterations + 1):
-        if _densify_would_act(it, opt, state, white_background):
-            raise NotImplementedError(
-                f"iteration {it} would densify or reset opacity, which "
-                "svgir_tpu_torch does not implement yet")
         cam = camera_for_iter(cams, it, seed)
         xyz_lr = float(xyz_sched(it))
         fn = step_fast if it >= opt.densify_until_iter else step_fn
         state, opt_state, tb = fn(state, opt_state, cam, float(it), xyz_lr)
+        if it < opt.densify_until_iter:
+            state, opt_state = _densify_cadence(
+                it, state, opt_state, opt, extent, white_background,
+                split_noise)
 
-        if it % log_every == 0 or it == iterations:
+        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn)
+        if it % log_every == 0 or it == iterations or extras:
             entry = {"iter": it, "psnr": float(tb["psnr"]),
                      "loss": float(tb["loss"]),
                      "n_alive": int(state["alive"].sum()),
-                     "elapsed": time.time() - t0}
+                     "elapsed": time.time() - t0, **extras}
             if _overflowed(entry, tb, it) and auto_grow_instances:
                 raster_cfg = _grow_instance_cap(raster_cfg)
                 step_fn = make(raster_cfg, True)
@@ -168,6 +241,53 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
             if callback:
                 callback(entry, state)
     return state, opt_state, history
+
+
+def _densify_cadence(it: int, state, opt_state, opt: OptimizationConfig,
+                     extent: float, white_background: bool,
+                     split_noise: Callable):
+    """The reference loop's densification block after iteration ``it``
+    (train.py:194-210): densify and prune every ``densification_interval``
+    past ``densify_from_iter``; reset opacity every
+    ``opacity_reset_interval`` and, on white-background scenes, once at
+    ``densify_from_iter``; both only below ``opt.max_points``.  Capacity
+    doubles before a densify that finds it 85% full, and after one that
+    ran out of free slots."""
+    at_densify = (it > opt.densify_from_iter
+                  and it % opt.densification_interval == 0)
+    at_reset = (it % opt.opacity_reset_interval == 0
+                or (white_background and it == opt.densify_from_iter))
+    if not (at_densify or at_reset):
+        return state, opt_state
+    # the alive count is read on the host only at cadence points
+    n_alive = int(state["alive"].sum())
+    if n_alive >= opt.max_points:
+        return state, opt_state
+    if at_densify:
+        cap = state["alive"].shape[0]
+        if n_alive > 0.85 * cap:
+            state, opt_state = G.grow_capacity(state, opt_state, cap * 2)
+        cap = state["alive"].shape[0]
+        state, opt_state, rep = G.densify_and_prune(
+            state, opt_state, split_noise(it, cap),
+            max_grad=opt.densify_grad_threshold, min_opacity=MIN_OPACITY,
+            extent=extent,
+            max_screen_size=20.0 if it > opt.opacity_reset_interval else None,
+            max_grad_normal=(opt.densify_grad_normal_threshold
+                             if it > opt.normal_densify_from_iter
+                             else 99999.0),
+            percent_dense=opt.percent_dense, n_split=N_SPLIT)
+        # children past the free slots were dropped: say so and grow, so
+        # the next cadence has room
+        if bool(rep["out_of_capacity"]):
+            print(f"WARNING: densify out of capacity at iter {it} (cap "
+                  f"{cap}): some clone/split children were dropped; "
+                  f"growing capacity -> {cap * 2}", flush=True)
+            state, opt_state = G.grow_capacity(state, opt_state, cap * 2)
+    if at_reset:
+        params, opt_state = G.reset_opacity(state["params"], opt_state)
+        state = {**state, "params": params}
+    return state, opt_state
 
 
 def _overflowed(entry, tb, it) -> bool:
@@ -250,7 +370,8 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
                  seed: int = 0, log_every: int = 50, callback=None,
                  bake_azimuth: Optional[torch.Tensor] = None,
                  env_state=None, opt_state=None,
-                 checkpoint_interval: int = 0, test_interval: int = 0,
+                 out_dir: Optional[str] = None, checkpoint_interval: int = 0,
+                 test_cameras: Optional[List] = None, test_interval: int = 0,
                  vis_interval: int = 0, auto_grow_instances: bool = True,
                  device="cuda"):
     """Stage-2 loop (train.py with is_pbr=True).  Returns (state,
@@ -263,14 +384,8 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
     draws from the loop's generator seeded with ``seed``.  ``radiances``
     and ``radiance_ratio`` are initialized from the bake when absent; a
     new env map draws from the loop's generator (after the bake's draws).
-    The periodic
-    checkpoint, test and visualization tasks are not ported yet: a nonzero
-    interval raises ``NotImplementedError``.
+    Checkpoints carry the env map (``env=``) and the bake (``extra=``).
     """
-    if checkpoint_interval or test_interval or vis_interval:
-        raise NotImplementedError(
-            "checkpoint, test and visualization intervals are not ported "
-            "to svgir_tpu_torch yet")
     gen = torch.Generator(device=device).manual_seed(seed)
     params = dict(state["params"])
     if bake is None:
@@ -281,6 +396,9 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
                                      sample_num=sample_num,
                                      azimuth=bake_azimuth)
     bake = {k: v for k, v in bake.items() if k != "exhausted_frac"}
+    if "incident_qxy" not in bake:      # a bake saved by svgir_tpu
+        bake["incident_qxy"] = torch.stack(
+            LT.equirect_grid_coords(bake["incident_dirs"]), -1)
 
     if "radiances" not in params or params["radiances"].shape[1] != sample_num:
         params["radiances"] = bake["radiance"].clone()
@@ -301,7 +419,22 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         lr_final=opt.position_lr_final * spatial_lr_scale,
         lr_delay_mult=opt.position_lr_delay_mult,
         max_steps=opt.position_lr_max_steps)
-    cams = [dataclasses.replace(c, uid=0, image_name="") for c in cameras]
+    periodic = PeriodicTasks(
+        out_dir=out_dir, checkpoint_interval=checkpoint_interval,
+        test_cameras=test_cameras, test_interval=test_interval,
+        vis_interval=vis_interval, device=device)
+    cams = stage_cameras([strip_meta(c) for c in cameras], device=device)
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
+
+    def eval_fn(cam):
+        return render_view_svgss(cam, state["params"], bake,
+                                 env_state["params"], bg_t,
+                                 is_training=False, alive=state["alive"],
+                                 sh_degree=sh_degree, cfg=raster_cfg)
+
+    def save_fn(i):
+        CK.save_checkpoint(os.path.join(out_dir, f"chkpnt{i}.npz"), i, state,
+                           opt_state, env=env_state, extra=bake)
 
     radiance_lr = opt.radiance_lr
     # resuming past the first %1000 boundary keeps it zeroed
@@ -320,11 +453,12 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         if it % 1000 == 0:
             radiance_lr = 0.0
 
-        if it % log_every == 0 or it == iterations:
+        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn)
+        if it % log_every == 0 or it == iterations or extras:
             entry = {"iter": it, "psnr": float(tb["psnr"]),
                      "psnr_pbr": float(tb["psnr_pbr"]),
                      "loss": float(tb["loss"]),
-                     "elapsed": time.time() - t0}
+                     "elapsed": time.time() - t0, **extras}
             if _overflowed(entry, tb, it) and auto_grow_instances:
                 raster_cfg = _grow_instance_cap(raster_cfg)
                 step_fn = make_svgss_train_step(
@@ -397,3 +531,34 @@ def bake_radiance_compact(params, alive, *, sample_num: int,
         "uv": expand(bake_c["uv"]),
         "exhausted_frac": bake_c["exhausted_frac"],
     }
+
+
+def jsonl_logger(path: str):
+    """Callback that appends each history entry to a JSON-lines file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def cb(entry, *_):
+        with open(path, "a") as f:
+            f.write(json.dumps(entry) + "\n")
+
+    return cb
+
+
+def tensorboard_logger(log_dir: str):
+    """Callback that writes each history entry as TensorBoard scalars
+    (``train_loss_patches/<key>``, training_report at train.py:252-311), or
+    None when ``torch.utils.tensorboard`` cannot be imported."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    writer = SummaryWriter(log_dir)
+
+    def cb(entry, *_):
+        step = int(entry.get("iter", 0))
+        for key, val in entry.items():
+            if key != "iter" and isinstance(val, (int, float)):
+                writer.add_scalar(f"train_loss_patches/{key}", val, step)
+
+    cb.writer = writer          # callers close it
+    return cb

@@ -61,6 +61,10 @@ def projection_matrix_center_shift(znear: float, zfar: float, cx: float,
     return P
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 

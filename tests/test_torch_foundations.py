@@ -31,7 +31,7 @@ def _t(x):
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "OptimizationConfig",
-                                  "RasterConfig"])
+                                  "RasterConfig", "PipelineConfig"])
 def test_config_fields_and_defaults_match(name):
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
     tf = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}

@@ -1,6 +1,7 @@
 """svgir_tpu_torch's stage-2 loop on the CPU: ``train_stage2`` with a given
-(synthetic) radiance bake fits a tiny scene and refuses what it does not
-implement yet; without a bake it bakes first and trains like the JAX loop.
+(synthetic) radiance bake fits a tiny scene, runs its periodic checkpoints
+and test PSNR and refuses the one periodic task it does not implement yet;
+without a bake it bakes first and trains like the JAX loop.
 
 ``test_train_stage2_fits_with_a_given_bake`` is the port's counterpart of
 ``test_stage2_trains`` in tests/test_stage2_training.py, with the bake's
@@ -130,13 +131,35 @@ def test_train_stage2_zeroes_the_radiance_lr_after_a_thousand(
 @pytest.mark.parametrize("kw", [dict(checkpoint_interval=5),
                                 dict(test_interval=5), dict(vis_interval=5)],
                          ids=["checkpoint", "test", "vis"])
-def test_train_stage2_refuses_what_is_not_ported(kw):
+def test_train_stage2_refuses_what_is_not_ported(kw, tmp_path):
+    """Of the periodic tasks only the training visualisation is not
+    ported, and ``vis_interval`` is refused; the checkpoints (with the env
+    map and the bake) and the test PSNR run."""
     state, cams, bake = _setup()
     args = dict(bake=bake, raster_cfg=CFG, sample_num=S, first_iter=0,
-                iterations=2, device="cpu")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match="interval"):
-        train_stage2(state, cams, OptimizationConfig(), **args)
+                iterations=2, log_every=10, device="cpu",
+                out_dir=str(tmp_path))
+    args.update({k: v // 5 for k, v in kw.items()})   # every iteration
+    if "vis_interval" in kw:
+        with pytest.raises(NotImplementedError, match="vis_interval"):
+            train_stage2(state, cams, OptimizationConfig(), **args)
+        return
+    if "test_interval" in kw:
+        args["test_cameras"] = cams
+    _, _, env, bake_out, hist = train_stage2(state, cams,
+                                             OptimizationConfig(), **args)
+    assert [h["iter"] for h in hist] == [1, 2]
+    if "test_interval" in kw:
+        # the views are the start state's own renders: inf at first
+        assert all(h["test_psnr"] > 20 for h in hist)
+        return
+    from svgir_tpu_torch.train import checkpoint as CK
+    it, tree = CK.load_checkpoint(str(tmp_path / "chkpnt2.npz"), "cpu")
+    assert it == 2 and hist[-1]["checkpoint"] == 2.0
+    assert torch.equal(tree["env"]["params"]["env"], env["params"]["env"])
+    for k, v in bake_out.items():
+        assert torch.equal(tree["extra"][k], v), k
+    assert (tmp_path / "chkpnt1.npz").exists()
 
 
 def test_train_stage2_grows_the_instance_cap_on_overflow(monkeypatch):

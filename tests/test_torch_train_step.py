@@ -239,23 +239,98 @@ def test_init_from_points_matches():
 
 
 def test_train_stage1_runs_then_refuses_to_skip_densification():
+    """The port's ``train_stage1`` against svgir_tpu's over seven
+    iterations that densify once (iteration 4: clones, splits and prunes)
+    and reset opacity once (iteration 6), with the JAX loop's split draws
+    (``fold_in(PRNGKey(seed), it)``, split in two) injected.
+
+    Both loops make the same densify decisions only if no surfel sits at a
+    threshold, so the test first checks, on the statistics the densify at
+    iteration 4 sees, that every mean gradient lies more than 1% from
+    ``densify_grad_threshold``, every largest scale more than 1% from
+    ``percent_dense`` x extent and every weight sum zero or more than 10%
+    above the prune threshold.  Then: the alive counts and masks are equal,
+    losses agree to 1e-3 relative, and each parameter differs by at most
+    what Adam steps of the two packages' float32 gradients can move it
+    apart (2 x 3.17 lr a step: (1 - beta1) / sqrt(1 - beta2) bounds an
+    Adam step, in units of lr)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # as tests/test_torch_densify.py says
+    try:
+        _loop_parity()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _loop_parity():
     pts, cols, img = _inputs()
-    state = TG.init_from_points(pts, cols, normals=pts, capacity=256,
-                                rotation_init="normal", device="cpu")
-    cam = t_look_at(eye=[0.3, 0.2, -3.0], target=[0, 0, 0], up=[0, -1, 0],
-                    fovx=np.pi / 3, fovy=np.pi / 3, width=32, height=32,
-                    image=img[:, :32, :32], device="cpu")
-    opt = TOpt(densify_from_iter=2, densification_interval=3)
-    cfg = TCfg(max_instances=1 << 14)
-    st, _, hist = ttrainer.train_stage1(state, [cam], opt, raster_cfg=cfg,
-                                        iterations=2, log_every=1,
-                                        device="cpu")
-    assert [h["iter"] for h in hist] == [1, 2]
-    assert all(np.isfinite(h["loss"]) for h in hist)
-    assert not torch.equal(st["params"]["xyz"], state["params"]["xyz"])
-    with pytest.raises(NotImplementedError):
-        ttrainer.train_stage1(state, [cam], opt, raster_cfg=cfg,
-                              iterations=3, log_every=1, device="cpu")
+    res, iters, seed = 32, 7, 5
+    kw = dict(densify_from_iter=2, densification_interval=4,
+              opacity_reset_interval=6, densify_until_iter=100,
+              densify_grad_threshold=0.0015, percent_dense=0.2,
+              position_lr_max_steps=iters)
+    topt, jopt = TOpt(**kw), JOpt(**kw)
+    tcfg, jcfg = TCfg(max_instances=1 << 14), JCfg(max_instances=1 << 14)
+    tcam = t_look_at(eye=[0.3, 0.2, -3.0], target=[0, 0, 0], up=[0, -1, 0],
+                     fovx=np.pi / 3, fovy=np.pi / 3, width=res, height=res,
+                     image=img[:, :res, :res], device="cpu")
+    jcam = dataclasses.replace(default_camera(res, res),
+                               image=img[:, :res, :res],
+                               image_mask=np.ones((1, res, res), np.float32))
+
+    def t_state():
+        return TG.init_from_points(pts, cols, normals=pts, capacity=256,
+                                   rotation_init="normal", device="cpu")
+
+    # the statistics the densify at iteration 4 sees
+    st, _, _ = ttrainer.train_stage1(
+        t_state(), [tcam], dataclasses.replace(topt, densify_from_iter=100),
+        raster_cfg=tcfg, iterations=4, log_every=4, device="cpu")
+    alive, stats = st["alive"], st["stats"]
+    g = torch.nan_to_num(stats["xyz_gradient_accum"][:, 0]
+                         / stats["denom"][:, 0].clamp(min=1e-12))[alive]
+    assert ((g - topt.densify_grad_threshold).abs()
+            > 0.01 * topt.densify_grad_threshold).all()
+    hot = g >= topt.densify_grad_threshold
+    max_scale = TG.get_scaling(st["params"]).max(1).values[alive]
+    assert ((max_scale[hot] - topt.percent_dense).abs()
+            > 0.01 * topt.percent_dense).all()
+    w = stats["weights_accum"][alive, 0]
+    assert ((w == 0) | (w > 1.1e-5)).all()
+    small = max_scale[hot] <= topt.percent_dense
+    assert small.any() and (~small).any()       # clones and splits
+
+    def jax_noise(it, cap):
+        keys = jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(seed), it), 2)
+        return torch.as_tensor(np.stack(
+            [np.asarray(jax.random.normal(k, (cap, 3))) for k in keys]))
+
+    tst, tost, thist = ttrainer.train_stage1(
+        t_state(), [tcam], topt, raster_cfg=tcfg, iterations=iters,
+        log_every=1, seed=seed, split_noise=jax_noise, device="cpu")
+    jstate = JG.init_from_points(jnp.asarray(pts), jnp.asarray(cols),
+                                 normals=jnp.asarray(pts), capacity=256,
+                                 rotation_init="normal")
+    jst, jost, jhist = jtrainer.train_stage1(
+        jstate, [jcam], jopt, raster_cfg=jcfg, iterations=iters,
+        log_every=1, seed=seed)
+
+    assert [h["n_alive"] for h in thist] == [h["n_alive"] for h in jhist]
+    assert thist[3]["n_alive"] != thist[2]["n_alive"]     # densified at 4
+    np.testing.assert_array_equal(tst["alive"].numpy(),
+                                  np.asarray(jst["alive"]))
+    np.testing.assert_allclose([h["loss"] for h in thist],
+                               [h["loss"] for h in jhist], rtol=1e-3)
+    lrs = toptim.group_lrs(topt, 1.0)
+    live = tst["alive"].numpy()
+    for name in PARAMS:
+        a = tst["params"][name].numpy()[live]
+        b = np.asarray(jst["params"][name])[live]
+        assert np.abs(a - b).max() <= 2 * 3.17 * lrs[name] * iters, name
+    # the reset at 6 clamped every opacity to 0.01, one step ago
+    opac = TG.get_opacity(tst["params"]).numpy()[live]
+    assert opac.max() < 0.01 + 2 * 3.17 * topt.opacity_lr
 
 
 def test_port_imports_neither_jax_nor_svgir_tpu():
@@ -265,9 +340,14 @@ def test_port_imports_neither_jax_nor_svgir_tpu():
         "for m in pkgutil.walk_packages(svgir_tpu_torch.__path__,"
         " 'svgir_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'svgir_tpu' or m.startswith('svgir_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'svgir_tpu', 'native')]\n"
         "assert not bad, bad\n"
+        "trainer = ['cli.train', 'data.readers', 'data.ply', 'data.colmap',"
+        " 'train.checkpoint', 'train.staging', 'train.cap_probe']\n"
+        "missing = [m for m in trainer if 'svgir_tpu_torch.' + m"
+        " not in sys.modules]\n"
+        "assert not missing, missing\n"
         "stage2 = ['render.svgss', 'models.lights', 'models.radiance',"
         " 'ops.shading', 'ops.env_lookup_pallas', 'kernels.env_lookup']\n"
         "missing = [m for m in stage2 if 'svgir_tpu_torch.' + m"
