@@ -184,20 +184,58 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  TOL_DENSIFY), and its time with a stage-1 step's at 65,536
                  and 131,072 rows with the same surfels alive.
   25. cli        a Blender-layout scene written to a temporary directory (8
-                 RGBA 800x800 frames rendered on the card, no point cloud),
-                 then python -m svgir_tpu_torch.cli.train's main: stage 1
-                 for 60 iterations from the 100,000 bootstrap points in
-                 morton order, densify every 10 from 10, opacity reset at
-                 60, checkpoints at 30 and 60, the snug cap probe
-                 (--max_instances 0); the same
-                 run resumed from chkpnt30.npz (Adam step equal; alive
-                 count, loss and the norms of each parameter group and its
-                 second moment within TOL_RESUME_*); stage 2 from
-                 chkpnt60.npz for 3 iterations
-                 at --sample_num 64 --env_resolution 32.  Output files,
-                 finite logs, kernel launches (B8 in the bake), and the
+                 RGBA 800x800 training frames and 2 test frames rendered
+                 on the card, no point cloud), then python -m
+                 svgir_tpu_torch.cli.train's main: stage 1 for 60
+                 iterations from the 100,000 bootstrap points in morton
+                 order, densify every 10 from 10, opacity reset at 60,
+                 checkpoints at 30 and 60, the snug cap probe
+                 (--max_instances 0), --eval (the two test views rendered
+                 and scored at the end); the same run resumed from
+                 chkpnt30.npz (Adam step equal; alive count, loss and the
+                 norms of each parameter group and its second moment
+                 within TOL_RESUME_*); stage 2 from chkpnt60.npz for 3
+                 iterations at --sample_num 64 --env_resolution 32 with
+                 --eval, and --finetune_visibility (1,000 iterations) in
+                 another stage-2 run from 6,000 of its surfels; then
+                 python -m
+                 svgir_tpu_torch.cli.eval_relighting on the stage-2
+                 checkpoint with two HDRs written with OpenCV at
+                 --sample_num 384 (one metrics.json a light, pbr_psnr
+                 finite, pbr_lpips a number or the note).  Output files,
+                 finite logs, kernel launches (B8 in the bakes), and the
                  seconds of scene load, probe, loop, checkpoint write and
-                 read, and bake.
+                 read, bake, the fine-tuning and the relighting.
+
+  Relighting and the visibility tracers (stage 2's evaluation):
+  26. relight    the bench surfels facing inward (their hemisphere rays
+                 hit), upgraded to PBR with random base colour and
+                 roughness; two HDR lights written with OpenCV (512x1024
+                 sky with a sun, uniform 64x128) through load_hdr and
+                 env_light_init; eval_relighting over four 800x800 views
+                 at S = 384 (the bake once, 293 B8 chunks at k 16, then
+                 irradiance_full a light), with the albedo calibration on
+                 a synthetic GT albedo over each view's covered pixels;
+                 launch counts reset just before and read just after
+                 (B1, B2, B3, B7's forward and B8 launched, no backward).
+                 Checks: pairs with a hit, finite non-zero radiances, the
+                 same view different under the two lights, the summaries
+                 written.  B7's forward on the EnvLight lookup (N x 384
+                 queries, 32x64 map), B8 on the bake's first chunk and B3
+                 on the relit render (its n_contrib flips held to what one
+                 pair at alpha 1/255 moves) against their plain versions,
+                 timed with bound (and grid_sample for B7); the B3 work
+                 of this render and of the stage-2 eval render logged.
+                 Card against CPU on a 2,048-surfel patch at S = 32:
+                 irradiance_full within
+                 TOL_IRR, the relit 128x128 crop within TOL_S2_IMG.
+  27. visibility finetune_visibility for 10 iterations on the same surfels
+                 (the grid tracer), each iteration's trace timed; on 4,096
+                 of its rays the grid against its own acceptance tested
+                 densely (within TOL_VIS on rays clear of the 0.9 cut) and
+                 against the brute tracer (the rays that differ counted:
+                 different functions by design); the grid on the card
+                 against the CPU on 2,048 rays.
 
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
@@ -605,38 +643,55 @@ def compare_binning(calls):
     compare_instances(*calls["compute_instances"], "captured")
 
 
-def compare_blend(calls, label):
+def compare_blend(calls, label, hdr=False):
     """B3, B4 kernel vs plain on the captured inputs; returns max errors.
     (The captured logT image is a saved autograd output: no_grad keeps the
-    plain versions from recording a graph on it.)"""
+    plain versions from recording a graph on it.)  ``hdr``: a render whose
+    features are lit by an HDR light (``check_image``'s ``feature_max``)."""
     import torch
 
     with torch.no_grad():
-        return _compare_blend(calls, label)
+        return _compare_blend(calls, label, hdr)
 
 
-def check_image(ki, pi, nch, tag):
+def check_image(ki, pi, nch, tag, feature_max=None):
     """A blend image (kernel ``ki``) against its reference ``pi``, both
     [CA+CV+2, Hp, Wp]: channel sums within TOL_IMG, logT within 1e-5
     (TOL_LOGT_SAT where saturated), n_contrib at all but 1e-4 of the
     pixels; returns (max channel error, max logT error, n_contrib
-    mismatches)."""
+    mismatches).  ``feature_max`` (the largest feature any instance
+    carries, on a render lit by an HDR light): the pixels where n_contrib
+    differs (a pair whose alpha lies at 1/255 is blended by one rounding
+    of exp and not by the other) are held instead to what one such pair
+    moves: logT by -log(1 - 1/255), the sums by 1/255 of (feature_max +
+    the sum) beyond TOL_IMG."""
     from svgir_tpu_torch.ops.common import LOG_T_EPS
 
-    err_img = float((ki[:nch] - pi[:nch]).abs().max()) if nch else 0.0
+    flip = ki[nch + 1] != pi[nch + 1]
+    nc_bad = int(flip.sum())
+    keep = ~flip if feature_max is not None else flip | ~flip
+    d = (ki[:nch] - pi[:nch]).abs()
+    err_img = float(d.max()) if nch else 0.0
     lim = TOL_IMG * (1 + pi[:nch].abs())
-    if not bool(((ki[:nch] - pi[:nch]).abs() <= lim).all()):
+    if not bool((d <= lim)[:, keep].all()):
         raise AssertionError(f"{tag} channel sums differ by {err_img}")
-    lt_k, lt_p = ki[nch], pi[nch]
-    sat = lt_p < LOG_T_EPS
-    err_lt = float((lt_k - lt_p).abs().max())
-    if bool((lt_k - lt_p)[~sat].abs().max() > 1e-5) or \
-            (bool(sat.any()) and
-             bool((lt_k - lt_p)[sat].abs().max() > TOL_LOGT_SAT)):
+    sat = pi[nch] < LOG_T_EPS
+    dl = (ki[nch] - pi[nch]).abs()
+    err_lt = float(dl.max())
+    if bool((dl[~sat & keep] > 1e-5).any()) or \
+            bool((dl[sat & keep] > TOL_LOGT_SAT).any()):
         raise AssertionError(f"{tag} logT differs by {err_lt}")
-    nc_bad = int((ki[nch + 1] != pi[nch + 1]).sum())
     if nc_bad > ki[nch + 1].numel() // 10000:
         raise AssertionError(f"{tag} n_contrib differs at {nc_bad} pixels")
+    if feature_max is not None and nc_bad:
+        step = -math.log1p(-1.0 / 255.0)
+        pf = pi[:nch, flip].abs()
+        if bool((dl[flip] > step * 1.01 + 1e-5).any()) or bool(
+                (d[:, flip] > (feature_max + pf) / 255.0
+                 + TOL_IMG * (1 + pf)).any()):
+            raise AssertionError(f"{tag} differs at its {nc_bad} n_contrib "
+                                 "flips by more than one pair at alpha "
+                                 "1/255 moves it")
     return err_img, err_lt, nc_bad
 
 
@@ -659,7 +714,7 @@ def check_rows(kd, pd, ca, tag):
     return err
 
 
-def _compare_blend(calls, label):
+def _compare_blend(calls, label, hdr=False):
     import torch
 
     from svgir_tpu_torch.kernels import blend as K
@@ -673,7 +728,9 @@ def _compare_blend(calls, label):
     if not torch.equal(ke, pe):
         raise AssertionError(f"B3 [{label}] eff differs: "
                              f"{int((ke != pe).sum())} tiles")
-    err_img, err_lt, nc_bad = check_image(ki, pi, ca + cv, f"B3 [{label}]")
+    fmax = float(a[0][:, 12:].abs().max()) if hdr else None
+    err_img, err_lt, nc_bad = check_image(ki, pi, ca + cv, f"B3 [{label}]",
+                                          fmax)
     err_w = 0.0
     if kwsum is not None:
         err_w = max_err_rel(kwsum, pwsum)
@@ -682,7 +739,8 @@ def _compare_blend(calls, label):
     err3 = max(err_img, err_lt, err_w)
     if "blend_backward" not in calls:            # a forward-only render
         log(f"[kernels] {label}: B3 max|err| img {err_img:.3g} logT "
-            f"{err_lt:.3g}; n_contrib mismatches {nc_bad}")
+            f"{err_lt:.3g}; n_contrib mismatches {nc_bad}"
+            + (f" (largest instance feature {fmax:.4g})" if hdr else ""))
         return err3, None
 
     b, bkw = calls["blend_backward"]
@@ -1342,10 +1400,12 @@ MARCH_STEP_OPS = 33
 
 class Recorder:
     """Wraps ``mod.name`` while open: records each call's arguments,
-    result and wall seconds (synchronized on both sides)."""
+    result and wall seconds (synchronized on both sides); with ``keep``,
+    only the first ``keep`` calls (``secs`` has every call's seconds)."""
 
-    def __init__(self, mod, name):
+    def __init__(self, mod, name, keep=None):
         self.mod, self.name, self.calls = mod, name, []
+        self.keep, self.secs = keep, []
 
     def __enter__(self):
         import torch
@@ -1356,7 +1416,9 @@ class Recorder:
             t0 = time.perf_counter()
             out = self.fn(*a, **kw)
             torch.cuda.synchronize()
-            self.calls.append((a, kw, out, time.perf_counter() - t0))
+            self.secs.append(time.perf_counter() - t0)
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append((a, kw, out, self.secs[-1]))
             return out
         setattr(self.mod, self.name, rec)
         return self
@@ -2361,10 +2423,11 @@ def densify_vs_cpu(a, kw):
     return worst
 
 
-def write_blender_scene(root, state, dev, n_frames=8, res=800):
+def write_blender_scene(root, state, dev, n_frames=8, res=800, n_test=2):
     """A Blender-layout scene in ``root``: ``n_frames`` RGBA PNG frames of
-    the bench surfels rendered on the card from a ring of cameras, their
-    ``transforms_train.json``, and no point cloud (the reader bootstraps
+    the bench surfels rendered on the card from a ring of cameras and
+    ``n_test`` more from between them, their ``transforms_train.json`` and
+    ``transforms_test.json``, and no point cloud (the reader bootstraps
     100,000 random points)."""
     import os
 
@@ -2377,11 +2440,13 @@ def write_blender_scene(root, state, dev, n_frames=8, res=800):
     from svgir_tpu_torch.render.stage1 import render_view_stage1
 
     os.makedirs(os.path.join(root, "train"))
+    os.makedirs(os.path.join(root, "test"))
     fov = math.pi / 3
-    frames = []
+    frames = {"train": [], "test": []}
     bg = torch.zeros(3, device=dev)
-    for i in range(n_frames):
-        a = 2 * math.pi * i / n_frames
+    for i in range(n_frames + n_test):
+        split, j = ("train", i) if i < n_frames else ("test", i - n_frames)
+        a = 2 * math.pi * (i if i < n_frames else j + 0.5) / n_frames
         eye = [2.6 * math.sin(a), 0.4 * math.cos(3 * a), -2.6 * math.cos(a)]
         cam = look_at_camera(eye=eye, target=[0, 0, 0], up=[0, -1, 0],
                              fovx=fov, fovy=fov, width=res, height=res,
@@ -2393,7 +2458,7 @@ def write_blender_scene(root, state, dev, n_frames=8, res=800):
         rgb = (r["render"] / alpha.clamp(min=1e-6)).clamp(0, 1)
         rgba = torch.cat([rgb, alpha]).permute(1, 2, 0)
         rgba8 = (rgba * 255 + 0.5).to(torch.uint8).cpu().numpy()
-        if not cv2.imwrite(os.path.join(root, "train", f"r_{i}.png"),
+        if not cv2.imwrite(os.path.join(root, split, f"r_{j}.png"),
                            cv2.cvtColor(rgba8, cv2.COLOR_RGBA2BGRA)):
             raise RuntimeError(f"cv2 could not write frame {i}")
         # OpenCV axes (x right, y down, z forward) -> Blender's (y up, z
@@ -2403,11 +2468,12 @@ def write_blender_scene(root, state, dev, n_frames=8, res=800):
                                     .astype(np.float64))
         c2w[:3, 3] = eye
         c2w[:3, 1:3] *= -1
-        frames.append({"file_path": f"./train/r_{i}",
-                       "transform_matrix": c2w.tolist()})
+        frames[split].append({"file_path": f"./{split}/r_{j}",
+                              "transform_matrix": c2w.tolist()})
     import json
-    with open(os.path.join(root, "transforms_train.json"), "w") as f:
-        json.dump({"camera_angle_x": fov, "frames": frames}, f)
+    for split, fr in frames.items():
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": fov, "frames": fr}, f)
 
 
 def run_trainer(card, dev):
@@ -2419,10 +2485,13 @@ def run_trainer(card, dev):
     import torch
 
     from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.cli import eval_relighting as cli_relight
     from svgir_tpu_torch.cli import train as cli
     from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
     from svgir_tpu_torch.data import readers
+    from svgir_tpu_torch.eval import relighting as REL
     from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.models import radiance as RAD
     from svgir_tpu_torch.train import cap_probe, optim, trainer
     from svgir_tpu_torch.train import checkpoint as CK
 
@@ -2596,16 +2665,25 @@ def run_trainer(card, dev):
                 f"(by logged iteration: "
                 f"{[(e['iter'], e.get('n_alive')) for e in log_]}); "
                 f"launches {lc}; card: {card}")
-            return log_, res, r_load.calls[0][2]
+            return log_, res, r_load.calls[0][2], r_probe.calls[0][2]
 
-        log_a, res_a, sc = run(flags + ["-m", out_a],
-                               "stage 1, 60 iterations", STAGE1_KERNELS)
+        # stage 1 with --eval: the two test views rendered at the end
+        log_a, res_a, sc, _ = run(flags + ["-m", out_a, "--eval"],
+                                  "stage 1, 60 iterations, --eval",
+                                  STAGE1_KERNELS)
+        with open(os.path.join(out_a, "eval", "metrics.json")) as f:
+            ev = json.load(f)
+        log(f"[cli] stage 1 --eval: {json.dumps(ev)}")
+        if ev["n_views"] != 2 or not math.isfinite(ev["psnr"]) or \
+                not os.path.exists(os.path.join(out_a, "eval", "renders",
+                                                "00001_depth.png")):
+            raise AssertionError(f"cli --eval: {ev}")
         if sc.points.shape[0] != readers.BOOTSTRAP_POINTS:
             raise AssertionError(f"cli: the start cloud has "
                                  f"{sc.points.shape[0]} points, not the "
                                  f"{readers.BOOTSTRAP_POINTS} of the "
                                  "bootstrap")
-        log_b, res_b, _ = run(flags + ["-m", out_b, "-c", os.path.join(
+        log_b, res_b, _, _ = run(flags + ["-m", out_b, "-c", os.path.join(
             out_a, "chkpnt30.npz")], "stage 1 resumed at 30", STAGE1_KERNELS)
         na, nb = int(res_a[0]["alive"].sum()), int(res_b[0]["alive"].sum())
         la, lb = log_a[-1]["loss"], log_b[-1]["loss"]
@@ -2626,16 +2704,573 @@ def run_trainer(card, dev):
             raise AssertionError(f"cli resume: step {sb} vs {sa}, alive {nb} "
                                  f"vs {na}, loss {lb} vs {la}, norms off "
                                  f"{bad}")
-        log_c, _, _ = run(["-s", scene, "-m", out_c, "-t", "render_relight",
-                        "-c", os.path.join(out_a, "chkpnt60.npz"),
-                        "--iterations", "63", "--sample_num", "64",
-                        "--env_resolution", "32", "--max_instances", "0",
-                        "--position_lr_max_steps", "63", "--quiet"],
-                       "stage 2 from chkpnt60, S = 64, env 32x64",
-                       STAGE2_KERNELS + ("march",))
+        # --finetune_visibility (1,000 iterations) runs on a 6,000-surfel
+        # checkpoint of chkpnt60's first alive rows: at its ~94,000 surfels
+        # an iteration takes 444 ms on an H100 80GB HBM3 at 700 W, so the
+        # flag there would take about 7 minutes
+        ck60 = os.path.join(out_a, "chkpnt60.npz")
+        log_c, _, _, cap_c = run(
+            ["-s", scene, "-m", out_c, "-t", "render_relight", "-c", ck60,
+             "--iterations", "63", "--sample_num", "64",
+             "--env_resolution", "32", "--max_instances", "0",
+             "--position_lr_max_steps", "63", "--quiet", "--eval"],
+            "stage 2 from chkpnt60, S = 64, env 32x64, --eval",
+            STAGE2_KERNELS + ("march",))
         log(f"[cli] stage 2: psnr_pbr {log_c[-1]['psnr_pbr']:.4f}, loss "
             f"{log_c[-1]['loss']:.6f}")
+        _, tree = CK.load_checkpoint(ck60, device=dev)
+        small = os.path.join(tmp, "chkpnt60_6000.npz")
+        rows = torch.nonzero(tree["state"]["alive"])[:, 0][:6000]
+        p6 = {k: v[rows] for k, v in tree["state"]["params"].items()}
+        st6 = {"params": p6, "alive": torch.ones(len(rows), dtype=bool,
+                                                 device=dev),
+               "stats": G.init_stats(len(rows), device=dev)}
+        CK.save_checkpoint(small, 60, st6, optim.adam_init(p6))
+        with Recorder(G, "finetune_visibility") as r_ft:
+            run(["-s", scene, "-m", os.path.join(tmp, "d"), "-t",
+                 "render_relight", "-c", small, "--iterations", "61",
+                 "--sample_num", "64", "--env_resolution", "32",
+                 "--max_instances", "0", "--position_lr_max_steps", "61",
+                 "--finetune_visibility", "--quiet"],
+                "stage 2 on 6,000 surfels, --finetune_visibility",
+                STAGE2_KERNELS + ("march",))
+        (fa, fkw, fout, f_s), = r_ft.calls
+        if torch.equal(fout["params"]["visibility_rest"],
+                       fa[0]["params"]["visibility_rest"]):
+            raise AssertionError("cli: --finetune_visibility changed nothing")
+        log(f"[cli] --finetune_visibility: {int(fa[0]['alive'].sum())} "
+            f"surfels, 1,000 iterations in {f_s:.2f} s; card: {card}")
+        with open(os.path.join(out_c, "eval", "metrics.json")) as f:
+            log(f"[cli] stage 2 --eval: {f.read().strip()}")
+
+        # the relighting CLI on the stage-2 checkpoint, both HDRs, S = 384
+        hdrs = write_hdrs(tmp)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with Recorder(REL, "bake_radiance_compact") as r_bk, \
+                Recorder(RAD, "irradiance_full") as r_irr:
+            res_r = cli_relight.main(
+                ["-s", scene, "-m", out_c, "-c", os.path.join(
+                    out_c, "chkpnt63.npz"), "--hdr", *hdrs, "--sample_num",
+                 str(RELIGHT_SAMPLES), "--max_instances", str(cap_c)])
+        torch.cuda.synchronize()
+        rel_s = time.perf_counter() - t0
+        lc = kernels.launches()
+        check_launches(lc, "relighting CLI", at_least=[
+            ("binning_counts", 1), ("binning_instances", 1),
+            ("blend_forward", 1), ("env_lookup_forward", 1), ("march", 1)])
+        for path in hdrs:
+            name = os.path.splitext(os.path.basename(path))[0]
+            with open(os.path.join(out_c, "eval_relight", name,
+                                   "metrics.json")) as f:
+                m = json.load(f)
+            if m != res_r[name] or not math.isfinite(m["pbr_psnr"]) or \
+                    not isinstance(m["pbr_lpips"], (float, str)):
+                raise AssertionError(f"relighting CLI, {name}: {m}")
+            log(f"[cli] eval_relighting {name}: {json.dumps(m)}")
+        bk = r_bk.calls[0][2]
+        log(f"[cli] eval_relighting CLI: {rel_s:.2f} s for {len(hdrs)} "
+            f"lights x {res_r[name]['n_views']} views at S="
+            f"{RELIGHT_SAMPLES}: bake {r_bk.calls[0][3]:.2f} s (pairs with "
+            f"a hit {float((bk['hit_idx'] >= 0).float().mean()):.5f}, "
+            f"exhausted_frac {float(bk['exhausted_frac']):.6f}), "
+            f"irradiance_full " + ", ".join(f"{c[3]:.2f}" for c in
+                                             r_irr.calls)
+            + f" s; launches {lc}; card: {card}")
     log(f"[cli] {time.time() - t_cli:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# relighting under new HDR lights, and the visibility tracers
+# ---------------------------------------------------------------------------
+
+RELIGHT_SAMPLES = 384   # eval_relighting.py's --sample_num
+RELIGHT_VIEWS = 4
+SUBSET = 2048           # surfels (phase 26) and rays (27) held card vs CPU
+SUBSET_SAMPLES = 32     # the patch's bake (the CPU shades ~4 us a sample)
+# irradiance_full, card against CPU on the same bake: the devices round
+# the shading's rsqrt, pow and divisions a last place apart, and GGX's
+# denominator (1 - NoH^2 (1 - alpha^2)) amplifies that near mirror
+# directions, so each device is held to a float64 evaluation of the same
+# shading: the card no farther from it than twice the CPU, plus
+TOL_IRR = 1e-5          # of the largest irradiance
+TOL_VIS = 1e-5          # tests/test_grid_tracer.py::test_grid_matches_brute
+VIS_ITERS = 10          # finetune_visibility iterations timed at full width
+VIS_CLEAR = 1e-3        # rays compared lie this far from the 0.9 cut
+
+
+def write_hdrs(root):
+    """Two HDR lights written with OpenCV (float32, RGBE): a 512 x 1024
+    sky, blue at the zenith fading to a warm horizon and a dark ground, with
+    a sun of radiance 40 (a gaussian of 6 pixels), and a uniform grey 64 x
+    128 one.  Returns their paths."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    h, w = 512, 1024
+    y = (np.arange(h, dtype=np.float32) + 0.5) / h            # 0: zenith
+    sky = np.where(y[:, None] < 0.5,
+                   np.array([0.35, 0.55, 1.2]) * (1 - y[:, None])
+                   + np.array([1.0, 0.8, 0.6]) * y[:, None],
+                   np.array([0.15, 0.12, 0.1]))
+    img = np.repeat(sky[:, None, :], w, 1).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img += (40.0 * np.exp(-((yy - 140.0) ** 2 + (xx - 300.0) ** 2)
+                          / (2 * 6.0 ** 2)))[..., None].astype(np.float32)
+    paths = [os.path.join(root, "sky_sun.hdr"),
+             os.path.join(root, "uniform.hdr")]
+    for path, rgb in ((paths[0], img),
+                      (paths[1], np.full((64, 128, 3), 0.8, np.float32))):
+        if not cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1])):
+            raise RuntimeError(f"cv2 could not write {path}")
+    return paths
+
+
+def ring_cameras(dev, n, res, radius=2.6, gt=None, start=0.0):
+    """``n`` cameras on a ring around the origin looking at it, each with
+    the image ``gt`` (or none) and a full mask."""
+    import dataclasses
+
+    import torch
+
+    from svgir_tpu_torch.cameras import look_at_camera
+    cams = []
+    for i in range(n):
+        a = start + 2 * math.pi * i / n
+        cam = look_at_camera(
+            eye=[radius * math.sin(a), 0.4 * math.cos(3 * a),
+                 -radius * math.cos(a)], target=[0, 0, 0], up=[0, -1, 0],
+            fovx=math.pi / 3, fovy=math.pi / 3, width=res, height=res,
+            device=dev)
+        if gt is not None:
+            cam = dataclasses.replace(
+                cam, image=gt, image_mask=torch.ones(1, res, res,
+                                                     device=dev))
+        cams.append(cam)
+    return cams
+
+
+def patch_subset(params, alive, n):
+    """The ``n`` alive surfels nearest to the first one (a patch of the
+    shell, its full thickness: their hemisphere rays meet each other),
+    as params of n rows, all alive."""
+    import torch
+    rows = torch.nonzero(alive)[:, 0]
+    xyz = params["xyz"][rows]
+    near = rows[torch.argsort((xyz - xyz[0]).norm(dim=-1))[:n]]
+    return {k: (v[near] if v.dim() and v.shape[0] == alive.shape[0] else v)
+            for k, v in params.items()}
+
+
+def run_relight(card, dev):
+    """Phases 26-27: relighting the inward bench scene under two HDR
+    lights (rebake at S = 384, irradiance_full, eval_relighting over four
+    views), and the visibility tracers with finetune_visibility at full
+    width.  Returns the kernels-JSON entries of B7's forward on the
+    EnvLight lookup, B8 on the S = 384 chunks and B3 on the relit render."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.eval import relighting as REL
+    from svgir_tpu_torch.kernels import blend as KBL
+    from svgir_tpu_torch.kernels import env_lookup as KE
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.models import lights as LT
+    from svgir_tpu_torch.models import radiance as RAD
+    from svgir_tpu_torch.ops import blend_pallas_strip as BS
+    from svgir_tpu_torch.ops import env_lookup_pallas as EP
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    from svgir_tpu_torch.ops import march_pallas as MP
+    from svgir_tpu_torch.ops import tracing as TR
+    from svgir_tpu_torch.render.stage1 import render_view_stage1
+    from svgir_tpu_torch.train import cap_probe
+
+    t_phase = time.time()
+    # ---- 26. relighting: eval_relighting on the inward bench scene -------
+    # the bench surfels facing the centre (their hemisphere rays hit),
+    # upgraded to PBR with random base colour and roughness
+    state, cam = bench_scene(dev, inward=True)
+    st = G.upgrade_to_pbr(state)
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = dict(st["params"])
+    for k in ("base_color", "roughness"):
+        params[k] = 0.5 * torch.randn(params[k].shape, generator=g,
+                                      device=dev)
+    alive = st["alive"]
+    n = int(alive.sum())
+    res = cam.width
+    cams = ring_cameras(dev, RELIGHT_VIEWS, res, gt=cam.image)
+    cfg = RasterConfig(max_instances=cap_probe.snug_instance_cap(
+        params, cams, RasterConfig(), alive=alive))
+    # a synthetic GT albedo (0.5) over each view's covered pixels
+    gt_albedo = torch.full((3, res, res), 0.5, device=dev)
+    with torch.no_grad():
+        masks = [(render_view_stage1(c, params, torch.zeros(3, device=dev),
+                                     alive=alive, cfg=cfg)["opacity"] > 0.5)
+                 .float() for c in cams]
+
+    def gt_albedo_fn(idx):
+        return gt_albedo, masks[idx]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        envs = [(os.path.splitext(os.path.basename(p))[0],
+                 LT.env_light_init(LT.load_hdr(p), device=dev))
+                for p in write_hdrs(tmp)]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summaries, bake = {}, None
+        with Capture() as cap, \
+                Recorder(REL, "bake_radiance_compact") as r_bake, \
+                Recorder(RAD, "bake_radiance", keep=0) as r_pass, \
+                Recorder(RAD, "irradiance_full") as r_irr, \
+                Recorder(REL, "render_svgss") as r_view, \
+                Recorder(REL.M, "image_metrics") as r_met, \
+                Recorder(REL.M, "lpips") as r_lp, \
+                Recorder(REL, "save_image") as r_png, \
+                Recorder(GT, "nearest_hits_grid", keep=1) as r_grid:
+            for name, env in envs:
+                summaries[name] = REL.eval_relighting(
+                    os.path.join(tmp, "out"), params, alive, env, cams,
+                    sample_num=RELIGHT_SAMPLES, raster_cfg=cfg,
+                    gt_albedo_fn=gt_albedo_fn, light_name=name, bake=bake)
+                bake = r_bake.calls[0][2]
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = kernels.launches()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "out", envs[0][0], "metrics.json")) as f:
+            written = json.load(f)
+    check_launches(launches, "relighting", at_least=[
+        ("binning_counts", 1), ("binning_instances", 1),
+        ("blend_forward", 1), ("env_lookup_forward", 1), ("march", 1)],
+        none=("blend_backward", "env_lookup_backward"))
+    if len(r_bake.calls) != 1 or len(r_pass.secs) != 1:
+        raise AssertionError(f"relighting baked {len(r_bake.calls)} times "
+                             f"in {len(r_pass.secs)} passes for two lights "
+                             "(the reference: once, at k 16)")
+    hits = bake["hit_idx"][alive] >= 0
+    hit_share = float(hits.float().mean())
+    rads = [c[2] for c in r_irr.calls]
+    for name, rad in zip((e[0] for e in envs), rads):
+        if not bool(torch.isfinite(rad).all()) or \
+                not bool((rad[alive] != 0).any()):
+            raise AssertionError(f"relighting: radiances under {name} are "
+                                 "not finite or all zero")
+    if hit_share <= 0.0:
+        raise AssertionError("relighting: no (surfel, sample) pair has a hit")
+    if written != summaries[envs[0][0]]:
+        raise AssertionError("relighting: metrics.json is not the summary")
+    for name, s in summaries.items():
+        if s["n_views"] != RELIGHT_VIEWS or not math.isfinite(
+                s["pbr_psnr"]) or not math.isfinite(s["albedo_psnr"]):
+            raise AssertionError(f"relighting under {name}: {s}")
+    view_s = [c[3] for c in r_view.calls]
+    # the same view under the two lights (calls 1 and 6: after each
+    # light's calibration render)
+    per_light = len(r_view.calls) // 2
+    pbr_a = r_view.calls[1][2]["pbr"]
+    pbr_b = r_view.calls[per_light + 1][2]["pbr"]
+    cover = float(r_view.calls[1][2]["opacity"].mean())
+    bcs = r_view.calls[1][1]["base_color_scale"]
+    if cover <= 0.0 or torch.equal(pbr_a, pbr_b):
+        raise AssertionError(f"relighting: view 0 covers {cover}; its pbr "
+                             "is the same under both lights")
+    if not (bool(torch.isfinite(bcs).all()) and float(bcs.max()) < 100):
+        raise AssertionError(f"relighting: albedo scale {bcs.tolist()}")
+    log(f"[relight] inward bench scene, {n} surfels, S={RELIGHT_SAMPLES}, "
+        f"{RELIGHT_VIEWS} views of {res}x{res} (cap {cfg.max_instances}), "
+        f"lights "
+        + ", ".join(f"{k} {tuple(e['envmap'].shape)} -> "
+                    f"{tuple(e['lookup'].shape)}" for k, e in envs)
+        + f": load_hdr + env_light_init {load_s:.3f} s; bake "
+        f"{r_bake.calls[0][3]:.3f} s ({len(r_grid.secs)} grid-march "
+        f"chunks, one pass at k 16 as the reference's; exhausted_frac "
+        f"{float(bake['exhausted_frac']):.6f}, pairs with a hit "
+        f"{hit_share:.4f}); irradiance_full "
+        + ", ".join(f"{c[3]:.3f}" for c in r_irr.calls) + " s; views "
+        + ", ".join(f"{s:.3f}" for s in view_s) + " s (the first of each "
+        f"light's is the calibration render); image metrics "
+        f"{sum(c[3] for c in r_met.calls):.3f} s, lpips "
+        f"{sum(c[3] for c in r_lp.calls):.3f} s, PNG writes "
+        f"{sum(c[3] for c in r_png.calls):.3f} s; total {total_s:.3f} s; "
+        f"albedo scale {[round(x, 4) for x in bcs.tolist()]}, "
+        f"view 0's opacity {cover:.4f}, its pbr under the two lights "
+        f"{float(pbr_a.mean()):.4f} and {float(pbr_b.mean()):.4f}; "
+        f"peak memory {peak / 2**30:.3f} GiB; launches {launches}; "
+        f"card: {card}")
+    for name, s in summaries.items():
+        log(f"[relight] {name}: " + json.dumps(s))
+
+    # B7's forward on the EnvLight lookup (N x 384 bake directions on the
+    # 32 x 64 map), B8 on the S = 384 bake's first chunk and B3 on the
+    # relit render, against their plain versions
+    fa = cap.calls["env_lookup_forward"][0]
+    e7 = compare_env_forward(fa, "EnvLight lookup")
+    (geo8, grid8, o8, d8), hkw, _, _ = r_grid.calls[0]
+    mkw = dict(t_max=hkw["t_max"], k=hkw["k"], n_steps=hkw["n_steps"],
+               kmax=GT._run_kmax(grid8))
+    with torch.no_grad():
+        kt, ki = MP.march(grid8, o8, d8, **mkw)
+        pt, pi = MP.march_plain(grid8, o8, d8, **mkw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pt)
+    bad = int(((ki != pi) | (torch.isfinite(kt) != fin)
+               | (fin & (kt != pt))).sum())
+    both = fin & torch.isfinite(kt)
+    e8 = float((kt - pt)[both].abs().max()) if bool(both.any()) else 0.0
+    log(f"[relight] B8 vs plain on the S={RELIGHT_SAMPLES} bake's first "
+        f"chunk ({len(o8)} rays, grid res {grid8.res}, cap "
+        f"{grid8.cell_cap}, n_steps {mkw['n_steps']}, k {mkw['k']}): "
+        f"{int(fin.sum())} finite slots, {bad} differ, max|t err| {e8:.3g};"
+        f" B7 forward on {fa[1].numel()} EnvLight queries max|err| {e7:.3g}")
+    if bad > MARCH_SLOT_TOL * max(int(fin.sum()), 1):
+        raise AssertionError(f"B8 differs from its plain version at {bad} "
+                             "slots on the S = 384 chunk")
+    e3, _ = compare_blend(cap.calls, "relit render", hdr=True)
+
+    # card against CPU on a 2,048-surfel patch: irradiance_full on the
+    # card's bake of the patch, and the relit image of a 128 x 128 camera
+    sub = patch_subset(params, alive, SUBSET)
+    sub_alive = torch.ones(SUBSET, dtype=torch.bool, device=dev)
+    env0 = envs[0][1]
+    with torch.no_grad():
+        b_sub, rad_d = REL.rebake_radiance_for_light(
+            sub, sub_alive, env0, sample_num=SUBSET_SAMPLES)
+        cpu = {k: v.cpu() for k, v in b_sub.items()}
+        env_cpu = {k: (v.cpu() if v is not None else None)
+                   for k, v in env0.items()}
+        sub_cpu = {k: v.cpu() for k, v in sub.items()}
+        _, rad_c = REL.rebake_radiance_for_light(
+            sub_cpu, sub_alive.cpu(), env_cpu,
+            sample_num=SUBSET_SAMPLES, bake=cpu)
+        # the same shading in float64 on the CPU, from the CPU's inputs
+        n_sub = sub_cpu["xyz"].shape[0]
+        env_term = LT.env_light_direct(env_cpu, cpu["incident_dirs"]) \
+            * cpu["incident_areas"]
+        rad_64 = RAD.irradiance_full(
+            {k: (v.double() if v.is_floating_point() else v)
+             for k, v in cpu.items()}, env_term.double(),
+            G.get_shading_normal(sub_cpu).double(),
+            G.get_base_color(sub_cpu).reshape(n_sub, 3, 4).transpose(1, 2)
+            .double(), G.get_roughness(sub_cpu)[:, 0].double())
+    scale = float(rad_c.abs().max())
+    e_irr = float((rad_d.cpu() - rad_c).abs().max())
+    e_d64 = float((rad_d.cpu().double() - rad_64).abs().max())
+    e_c64 = float((rad_c.double() - rad_64).abs().max())
+    sub_hits = float((b_sub["hit_idx"] >= 0).float().mean())
+    if scale == 0.0 or e_d64 > 2 * e_c64 + TOL_IRR * scale:
+        raise AssertionError(f"irradiance_full: the card lies {e_d64} from "
+                             f"float64, the CPU {e_c64} (of {scale})")
+    centre = sub["xyz"].mean(0).cpu().numpy()
+    eye = (centre * 0.0).tolist()              # from the ball's centre
+    from svgir_tpu_torch.cameras import look_at_camera
+    crop = {d: look_at_camera(eye=eye, target=centre.tolist(),
+                              up=[0, -1, 0], fovx=math.pi / 4,
+                              fovy=math.pi / 4, width=128, height=128,
+                              device=d) for d in (dev, "cpu")}
+    imgs = {}
+    for d, (p_, b_, e_, r_) in {
+            dev: (sub, b_sub, env0, rad_c.to(dev)),
+            "cpu": (sub_cpu, cpu, env_cpu, rad_c)}.items():
+        p2 = {**p_, "radiances": r_,
+              "radiance_ratio": torch.ones((), device=d)}
+        with torch.no_grad():
+            res = REL.render_svgss(
+                crop[d], p2, torch.zeros(3, device=d),
+                bake={k: v for k, v in b_.items() if k != "exhausted_frac"},
+                env_params=None,
+                env_fn=lambda x, e_=e_: LT.env_light_direct(e_, x),
+                env_qxy_fn=lambda q, e_=e_: LT.env_light_direct_qxy(
+                    e_, q[..., 0], q[..., 1]),
+                is_training=False, alive=sub_alive.to(d),
+                cfg=RasterConfig(max_instances=1 << 18))
+        imgs[d] = res
+    e_img = max(float((imgs[dev][k].cpu() - imgs["cpu"][k]).abs().max())
+                for k in ("pbr", "base_color", "visibility"))
+    cover = float(imgs["cpu"]["opacity"].mean())
+    log(f"[relight] card vs CPU on a {SUBSET}-surfel patch at S="
+        f"{SUBSET_SAMPLES} (pairs with a hit {sub_hits:.4f}): "
+        f"irradiance_full within {e_irr:.3g} of {scale:.4g}, from a float64 "
+        f"evaluation {e_d64:.3g} (card) and {e_c64:.3g} (CPU); the relit "
+        f"128x128 crop (opacity {cover:.3f}, the CPU's radiances on both) "
+        f"within {e_img:.3g} (pbr, base colour, visibility)")
+    if e_img > TOL_S2_IMG or cover <= 0.0:
+        raise AssertionError(f"relit crop: card vs CPU differ by {e_img} "
+                             f"(coverage {cover})")
+
+    # timings and the kernels-JSON rows
+    report = []
+    bnd_env = env_bounds(fa)["env_lookup_forward"]
+    with torch.no_grad():
+        t7 = timings(lambda: KE.env_lookup_forward(*fa),
+                     lambda: EP.env_lookup_forward_plain(*fa),
+                     library_env_forward(fa))
+        t8 = timings(lambda: MP.march(grid8, o8, d8, **mkw),
+                     lambda: MP.march_plain(grid8, o8, d8, **mkw), reps=10,
+                     plain_reps=1)
+        a3, kw3 = cap.calls["blend_forward"]
+        t3 = timings(lambda: KBL.blend_forward(*a3, **kw3),
+                     lambda: BS.blend_forward_plain(*a3, **kw3))
+    work8 = march_work(grid8, o8, d8, pt, **{x: mkw[x] for x in
+                                              ("n_steps", "kmax", "k")})
+    bnd8 = march_bound(work8, len(o8), mkw["k"])
+    bnd3_all = bounds(cap.calls)
+    bnd3 = bnd3_all["blend_forward"]
+    log_blend_work(bnd3_all, a3, kw3, "relit render (view 0 under the "
+                   "first light, before the calibration)")
+    for name, src, rep, key, err, t, bd, what in (
+            ("env_lookup_forward_envlight",
+             "svgir_tpu_torch/csrc/env_lookup.cu",
+             "svgir_tpu/ops/env_lookup_pallas.py:63", "env_lookup_forward",
+             e7, t7, bnd_env, f"{fa[1].numel()} EnvLight queries, "
+             f"{tuple(fa[0].shape)} map"),
+            ("march_s384", "svgir_tpu_torch/csrc/march.cu",
+             "svgir_tpu/ops/march_pallas.py:66", "march", e8, t8, bnd8,
+             f"{len(o8)} rays of the S={RELIGHT_SAMPLES} bake; they visit "
+             f"{work8['all_blocks']} blocks, {work8['blocks']} before their "
+             f"lists settle, {work8['distinct_blocks']} distinct"),
+            ("blend_forward_relight", "svgir_tpu_torch/csrc/blend_forward.cu",
+             "svgir_tpu/ops/blend_pallas_strip.py:51", "blend_forward", e3,
+             t3, bnd3, f"the relit render, CA {kw3['ca']} / CV "
+             f"{kw3['cv']}")):
+        report.append({"name": name, "route": "cuda", "source": src,
+                       "replaces": rep, "launches": launches[key],
+                       "max_abs_err": err, **t, "bound_ms": bd[0],
+                       "bound_by": bd[1]})
+        log(f"[relight timing] {name} ({what}): "
+            + fmt_times(t, "grid_sample") + f", bound {bd[0]:.4f} ms by "
+            f"{bd[1]}; {launches[key]} launches in the relighting run; "
+            f"card: {card}")
+    if not (kw3["ca"] <= 32 and kw3["cv"] <= 16):
+        raise AssertionError(f"relit render at CA {kw3['ca']} / CV "
+                             f"{kw3['cv']}: past the blend's bound")
+    log(f"[relight] {time.time() - t_phase:.1f} s")
+
+    # ---- 27. visibility: finetune_visibility at full width ---------------
+    t_phase = time.time()
+    vstate = {**st, "params": params}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(GT, "build_grid_auto") as r_build, \
+            Recorder(GT, "trace_visibility_grid") as r_vis:
+        out = G.finetune_visibility(
+            vstate, iterations=VIS_ITERS,
+            generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    if len(r_vis.calls) != VIS_ITERS:
+        raise AssertionError(f"finetune_visibility at {n} surfels traced "
+                             f"{len(r_vis.calls)} times through the grid")
+    for k in ("visibility_dc", "visibility_rest"):
+        v = out["params"][k]
+        if not bool(torch.isfinite(v).all()) or torch.equal(v, params[k]):
+            raise AssertionError(f"finetune_visibility: {k} not updated")
+    (geo_v, grid_v, o_v, d_v), vkw, tr0, _ = r_vis.calls[0]
+    trace_s = [c[3] for c in r_vis.calls]
+    vis0 = tr0["visibility"][:, 0]
+    with torch.no_grad():
+        _, cells_v, _, _ = GT._vis_runs(grid_v, o_v, d_v, **vkw)
+        blocks = int(((torch.clamp(grid_v.cell_count[cells_v],
+                                   max=grid_v.cell_cap) + GT.BLK - 1)
+                      // GT.BLK).sum())
+    log(f"[visibility] finetune_visibility, {n} surfels, {VIS_ITERS} "
+        f"iterations: {ft_s:.3f} s ({ft_s / VIS_ITERS * 1e3:.1f} ms an "
+        f"iteration with the grid build of {r_build.calls[0][3]:.3f} s; "
+        f"res {grid_v.res}, cap {grid_v.cell_cap}, {grid_v.big_ids.shape[0]}"
+        f" big surfels, n_steps {vkw['n_steps']}, t_max {vkw['t_max']:.4f};"
+        f" the first iteration's rays visit {len(cells_v)} cell runs, "
+        f"{blocks} blocks of {GT.BLK} candidates);"
+        f" trace_visibility_grid per iteration "
+        + ", ".join(f"{s * 1e3:.1f}" for s in trace_s) + " ms; first "
+        f"iteration's targets: visible {float((vis0 > 0).float().mean()):.4f}"
+        f", mean contribute {float(tr0['contribute'].float().mean()):.3f}; "
+        f"card: {card}")
+
+    # the grid against the port's brute tracer, and against the grid's own
+    # acceptance tested densely, on 4,096 of the first iteration's rays
+    sel = torch.arange(0, len(o_v), max(len(o_v) // 4096, 1),
+                       device=dev)[:4096]
+    ro, rd = o_v[sel], d_v[sel]
+    with torch.no_grad():
+        vg = GT.trace_visibility_grid(geo_v, grid_v, ro, rd, **vkw)
+        vb = TR.trace_visibility(geo_v, ro, rd)
+        packed = GT.pack_geometry(geo_v)[:-1]
+        big = torch.zeros(len(packed), dtype=torch.bool, device=dev)
+        big[grid_v.big_ids.long()] = True
+        # the walk's steps end at n_steps dt; the big surfels' pass at t_max
+        lo = torch.full((), 0.01, device=dev)
+        log_t = torch.zeros(len(ro), dtype=torch.float64, device=dev)
+        for rows_, hi in ((torch.nonzero(~big)[:, 0], min(
+                vkw["t_max"], vkw["n_steps"] * float(GT.grid_dt(grid_v)))),
+                (torch.nonzero(big)[:, 0], vkw["t_max"])):
+            for c0 in range(0, len(rows_), 256):
+                pk = packed[rows_[c0:c0 + 256]][None]
+                cand = GT._test_candidates(pk, ro, rd, lo,
+                                           torch.full((), hi, device=dev))
+                log_t += GT._vis_terms(cand, pk[..., 24])[0].double()
+    t_dense = torch.exp(log_t)
+    clear = (t_dense - 0.9).abs() >= VIS_CLEAR
+    dense = torch.where(t_dense < 0.9, torch.zeros_like(t_dense), t_dense)
+    e_dense = float((vg["visibility"][:, 0].double() - dense)[clear].abs()
+                    .max())
+    differ = int(((vg["visibility"] - vb["visibility"]).abs()
+                  > TOL_VIS).sum())
+    log(f"[visibility] 4096 rays: the grid against its own acceptance "
+        f"tested densely within {e_dense:.3g} on the {int(clear.sum())} rays"
+        f" clear of the 0.9 cut; the grid against the brute tracer: "
+        f"{differ} rays differ by more than {TOL_VIS} (different functions "
+        f"by design: the brute tracer takes the max-density point and has "
+        f"no ellipse test); visible: grid {int((vg['visibility'] > 0).sum())}"
+        f", brute {int((vb['visibility'] > 0).sum())}")
+    if e_dense > TOL_VIS or int(clear.sum()) < 0.95 * len(ro):
+        raise AssertionError(f"grid visibility differs from its dense "
+                             f"oracle by {e_dense}")
+    # the card against the CPU on 2,048 of those rays, on one grid
+    grid_c = GT.TraceGrid(*[x.cpu() if isinstance(x, torch.Tensor) else x
+                            for x in grid_v])
+    geo_c = TR.SurfelGeometry(*[x.cpu() for x in geo_v])
+    vc = GT.trace_visibility_grid(geo_c, grid_c, ro[:SUBSET].cpu(),
+                                  rd[:SUBSET].cpu(), **vkw)
+    ok = clear[:SUBSET].cpu()
+    e_cpu = float((vg["visibility"][:SUBSET].cpu() - vc["visibility"])[ok]
+                  .abs().max())
+    n_cnt = int((vg["contribute"][:SUBSET].cpu() != vc["contribute"])
+                .sum())
+    log(f"[visibility] card vs CPU on {SUBSET} rays: visibility within "
+        f"{e_cpu:.3g} on the rays clear of the cut, contribute differs on "
+        f"{n_cnt}")
+    if e_cpu > TOL_VIS or n_cnt > 0.001 * SUBSET:
+        raise AssertionError(f"visibility: card vs CPU differ by {e_cpu}, "
+                             f"{n_cnt} counts")
+    log(f"[visibility] {time.time() - t_phase:.1f} s")
+    return report
+
+
+def log_blend_work(bnd, a, kw, label):
+    """Logs what a B3 call had to do: its instances, the real rows of the
+    chunks its tiles processed, the (pixel, row) pairs tested, passing the
+    footprint test and blending, and its tiles with any instance."""
+    wk = bnd["blend_work"]
+    tc = a[2]
+    log(f"[blend work] {label}: {int(tc.sum())} instances over "
+        f"{int((tc > 0).sum())} of {tc.numel()} tiles (max "
+        f"{int(tc.max())} a tile), {wk['rows']} real rows in processed "
+        f"chunks, {wk['pairs']} pairs, {wk['ok']} pass the footprint test, "
+        f"{wk['gated']} blend; CA {kw['ca']} / CV {kw['cv']}, slab "
+        f"{tuple(a[0].shape)}")
 
 
 def blend_extras(report, calls, label, ptx, parents, card, names=None):
@@ -3212,6 +3847,8 @@ def main() -> int:
     bnd2 = bounds(c2)
     bnd2e = bounds({**c2, "blend_forward": cap_s2_render.calls[
         "blend_forward"]})
+    log_blend_work(bnd2e, *cap_s2_render.calls["blend_forward"],
+                   "stage-2 eval render")
     fa, _ = c2["env_lookup_forward"]
     ba, bkw = c2["env_lookup_backward"]
     bnd_env = env_bounds(fa)
@@ -3320,6 +3957,9 @@ def main() -> int:
 
     # ---- 24-25. densification and the training CLI -------------------------
     run_trainer(card, dev)
+
+    # ---- 26-27. relighting under HDR lights, visibility ---------------------
+    report.extend(run_relight(card, dev))
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

@@ -16,10 +16,13 @@ Adam moments, or stage 2 from a stage-1 checkpoint through
 ``upgrade_to_pbr``.  ``--max_instances 0`` (the default) sizes the
 rasterizer's instance buffer from the scene (``train.cap_probe``).
 
-Not ported yet, and refused before any training: ``--eval`` on a scene
-with test views (the end-of-run test render with LPIPS), and
-``--save_training_vis`` (both ROADMAP Queue A 4), and
-``--finetune_visibility`` with ``-t render_relight`` (Queue A 3).
+``--finetune_visibility`` fits the visibility SH to traced visibility
+before stage 2 (1,000 iterations, draws from a generator seeded with
+``--seed`` + 7).  ``--save_training_vis`` writes the buffers of the
+iteration's view to ``visualize/iter_<iter>.png`` every
+``--save_training_vis_iteration``.  ``--eval`` on a scene with test views
+renders them at the end of the run (``eval/metrics.json``,
+``metric_eval.txt`` and the renders under ``eval/``; stage 2 scores pbr).
 """
 
 from __future__ import annotations
@@ -71,21 +74,40 @@ def raster_cfg_from_args(args) -> RasterConfig:
                         chunk=args.chunk)
 
 
-def _refuse_unported(model_cfg, pipe_cfg, opt_cfg, is_pbr, scene) -> None:
-    if pipe_cfg.save_training_vis:
-        raise NotImplementedError(
-            "--save_training_vis needs eval/nvs.save_training_vis, which "
-            "is not ported to svgir_tpu_torch yet (ROADMAP Queue A 4)")
-    if is_pbr and opt_cfg.finetune_visibility:
-        raise NotImplementedError(
-            "--finetune_visibility needs gaussians.finetune_visibility and "
-            "the visibility tracers, which are not ported to "
-            "svgir_tpu_torch yet (ROADMAP Queue A 3)")
-    if model_cfg.eval and scene.test_cameras:
-        raise NotImplementedError(
-            "--eval on a scene with test views needs the end-of-run test "
-            "render (eval/nvs.render_set with LPIPS), which is not ported "
-            "to svgir_tpu_torch yet (ROADMAP Queue A 4)")
+def eval_test_views(out_dir, scene, state, opt_cfg, raster_cfg, bg, *,
+                    is_pbr, bake=None, env_state=None, device="cuda"):
+    """The end-of-run test render (reference eval_render, train.py:246-249,
+    365-426): every test view with the final model through ``render_set``
+    under ``out_dir/eval``; stage 2 scores pbr and keeps the plain render
+    as ``image_render``."""
+    from svgir_tpu_torch.eval.nvs import render_set
+    from svgir_tpu_torch.render.stage1 import render_stage1
+    from svgir_tpu_torch.render.svgss import render_svgss
+    from svgir_tpu_torch.train.staging import stage_cameras
+    from svgir_tpu_torch.train.trainer import strip_meta
+
+    params, alive = state["params"], state["alive"]
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def render_one(cam):
+        cam = stage_cameras([strip_meta(cam)], device=device)[0]
+        if not is_pbr:
+            return render_stage1(cam, params, bg_t, opt=opt_cfg,
+                                 is_training=False, alive=alive,
+                                 cfg=raster_cfg)
+        res = render_svgss(cam, params, bg_t, bake=bake,
+                           env_params=env_state["params"], opt=opt_cfg,
+                           is_training=False, alive=alive, cfg=raster_cfg)
+        res["image_render"] = res["render"]
+        res["render"] = res["pbr"]          # the metric image (train.py:391)
+        return res
+
+    buffers = ("render", "image_render", "normal", "base_color",
+               "roughness", "visibility", "depth", "opacity") if is_pbr \
+        else ("render", "normal", "depth", "opacity")
+    return render_set(out_dir, "eval", scene.test_cameras, render_one,
+                      save_buffers=buffers)
 
 
 def main(argv=None):
@@ -124,7 +146,6 @@ def main(argv=None):
           f"{len(scene.test_cameras)} test cameras, "
           f"extent {scene.cameras_extent:.3f}", flush=True)
     is_pbr = args.type == "render_relight"
-    _refuse_unported(model_cfg, pipe_cfg, opt_cfg, is_pbr, scene)
     dump_cameras_json(out_dir, scene)   # scene/__init__.py:78-83
 
     bg = (1.0, 1.0, 1.0) if model_cfg.white_background else (0.0, 0.0, 0.0)
@@ -173,6 +194,8 @@ def main(argv=None):
         opt_state=opt_state, out_dir=out_dir,
         checkpoint_interval=args.checkpoint_interval,
         test_cameras=scene.test_cameras, test_interval=args.test_interval,
+        vis_interval=(pipe_cfg.save_training_vis_iteration
+                      if pipe_cfg.save_training_vis else 0),
         device=device)
     final = os.path.join(out_dir, f"chkpnt{opt_cfg.iterations}.npz")
     try:
@@ -182,6 +205,12 @@ def main(argv=None):
                 white_background=model_cfg.white_background, **common)
             CK.save_checkpoint(final, opt_cfg.iterations, state, opt_state)
         else:
+            if opt_cfg.finetune_visibility:
+                # gaussian_model.py:397-432, behind the same flag
+                print("Finetuning visibility SH...", flush=True)
+                state = G.finetune_visibility(
+                    state, generator=torch.Generator(device=device)
+                    .manual_seed(args.seed + 7), log_every=100)
             state, opt_state, env_state, bake, _ = train_stage2(
                 state, scene.train_cameras, opt_cfg,
                 sample_num=pipe_cfg.sample_num,
@@ -194,6 +223,11 @@ def main(argv=None):
             tb_cb.writer.close()
     CK.save_model_ply(os.path.join(out_dir, "point_cloud.ply"),
                       state["params"], state["alive"], use_pbr=is_pbr)
+    if model_cfg.eval and scene.test_cameras:
+        metrics = eval_test_views(out_dir, scene, state, opt_cfg, raster_cfg,
+                                  bg, is_pbr=is_pbr, bake=bake,
+                                  env_state=env_state, device=device)
+        print("eval:", json.dumps(metrics), flush=True)
     print("Training complete.", flush=True)
 
 

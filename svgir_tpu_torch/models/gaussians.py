@@ -63,11 +63,15 @@ def get_shading_normal(params) -> torch.Tensor:
     return normalize(geo + off)
 
 
-def get_base_color(params) -> torch.Tensor:
-    """sigmoid(x)*0.77 + 0.03, channel-major over the 4 vertices
-    (gaussian_model.py:123; the relighting's per-channel rescale is not
-    ported yet)."""
-    return torch.sigmoid(params["base_color"]) * 0.77 + 0.03
+def get_base_color(params, base_color_scale: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """sigmoid(x)*0.77 + 0.03, channel-major over the 4 vertices, optionally
+    rescaled per colour channel [3] (gaussian_model.py:123, 338-339; the
+    relighting evaluation's albedo calibration)."""
+    bc = torch.sigmoid(params["base_color"]) * 0.77 + 0.03
+    if base_color_scale is not None:
+        bc = bc * torch.repeat_interleave(base_color_scale, VERTEX_NUM)[None]
+    return bc
 
 
 def get_roughness(params) -> torch.Tensor:
@@ -431,3 +435,86 @@ def params_from_jax(np_params: Mapping[str, Any],
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Inverse of ``params_from_jax``: tensors -> numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# visibility fine-tuning (gaussian_model.py:397-432)
+# ---------------------------------------------------------------------------
+
+GRID_FROM = 4096   # surfels from which the bake and visibility use the grid
+
+
+def finetune_visibility(state, *, iterations: int = 1000, lr: float = 1e-2,
+                        directions: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None,
+                        use_grid: Optional[bool] = None,
+                        log_every: int = 0):
+    """Fit the per-surfel visibility SH (degree 3, 16 coefficients, one
+    channel) to ray-traced visibility (``GaussianModel.finetune_visibility``).
+
+    Per iteration: one direction per surfel, flipped into its geometric
+    normal's hemisphere, origins offset by 0.05 d; the target is the traced
+    visibility (``trace_visibility`` semantics, no gradient), the
+    prediction clamp(eval_sh + 0.5, 0, 1); masked L1 over the alive rows,
+    Adam at ``lr`` on visibility_dc / visibility_rest only.  The raw
+    directions (standard normal, before normalising) are ``directions``
+    [iterations, N, 3], or drawn from ``generator`` on the state's device.
+    The grid tracer runs from 4,096 alive surfels (``use_grid`` forces
+    either), its grid chosen from the alive surfels and its steps covering
+    the diagonal of all rows' bounding box.  Only the alive rows are traced
+    and only the alive surfels tested: a dead row's target reaches no
+    gradient and a dead surfel accepts no ray.  Returns the updated state."""
+    from svgir_tpu_torch.ops import grid_tracer, tracing
+    from svgir_tpu_torch.train import optim
+    from svgir_tpu_torch.utils.sh import eval_sh
+
+    params = state["params"]
+    alive = state["alive"]
+    xyz = params["xyz"]
+    n = xyz.shape[0]
+    rows = torch.nonzero(alive)[:, 0]
+    geo = tracing.build_surfel_geometry(
+        xyz[rows], get_scaling(params)[rows], get_rotation(params)[rows],
+        get_opacity(params)[rows, 0])
+    normal = get_geo_normal(params)
+    if use_grid is None:
+        use_grid = rows.shape[0] >= GRID_FROM
+    if use_grid:
+        grid = grid_tracer.build_grid_auto(geo, res=grid_tracer.auto_res(geo))
+        m_np = xyz.detach().cpu().numpy()
+        diag = float(np.linalg.norm(m_np.max(0) - m_np.min(0))) + 1e-3
+        n_steps = grid_tracer._concrete_n_steps(grid, diag)
+
+    vis = {"visibility_dc": params["visibility_dc"],
+           "visibility_rest": params["visibility_rest"]}
+    opt_state = optim.adam_init(vis)
+    lrs = {"visibility_dc": lr, "visibility_rest": lr}
+    denom = torch.clamp(alive.sum(), min=1)
+    for it in range(iterations):
+        raw = directions[it] if directions is not None else torch.randn(
+            n, 3, generator=generator, device=xyz.device)
+        d = normalize(raw.to(xyz.device))
+        flip = (d * normal).sum(-1, keepdim=True) < 0
+        d = torch.where(flip, -d, d)
+        o = xyz[rows] + 0.05 * d[rows]
+        with torch.no_grad():
+            if use_grid:
+                tr = grid_tracer.trace_visibility_grid(
+                    geo, grid, o, d[rows], t_max=diag, n_steps=n_steps)
+            else:
+                tr = tracing.trace_visibility(geo, o, d[rows])
+        target = torch.ones(n, 1, device=xyz.device)
+        target[rows] = tr["visibility"]                           # [N, 1]
+        vp = {k: v.detach().requires_grad_(True) for k, v in vis.items()}
+        sh = torch.cat([vp["visibility_dc"], vp["visibility_rest"]], 1)
+        pred = torch.clamp(eval_sh(3, sh.transpose(1, 2), d) + 0.5, 0.0, 1.0)
+        err = (target - pred).abs()
+        loss = torch.where(alive[:, None], err,
+                           torch.zeros_like(err)).sum() / denom
+        grads = dict(zip(vp, torch.autograd.grad(loss, list(vp.values()))))
+        vis, opt_state = optim.adam_step(
+            {k: v.detach() for k, v in vp.items()}, grads, opt_state, lrs)
+        if log_every and (it + 1) % log_every == 0:
+            print(f"finetune_visibility {it + 1}/{iterations}: "
+                  f"L1 {float(loss):.4f}", flush=True)
+    return {**state, "params": {**params, **vis}}

@@ -1,11 +1,12 @@
 """The radiance model of stage 2: the bake (hemisphere-sample every surfel,
 trace the samples, store radiance, visibility, first hit and its uv), the
 one-bounce irradiance at one chosen sample per surfel and the
-radiance-consistency loss of the stage-2 step.
+radiance-consistency loss of the stage-2 step, and the one-bounce
+irradiance at every sample (``irradiance_full``) with which the relighting
+evaluation re-bakes the radiances under a new light.
 
 Mirrors ``svgir_tpu.models.radiance`` (reference ``gaussian_model.py:
-466-575`` and ``intersect_test.slang:1143-1378, 1879-1990``).  The full-S
-``irradiance_full`` is not ported yet.
+466-575`` and ``intersect_test.slang:904+, 1143-1378, 1879-1990``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def bake_radiance(means: torch.Tensor, scales: torch.Tensor,
                             device=dev).repeat_interleave(s)
 
     if use_grid is None:
-        use_grid = n >= 4096
+        use_grid = n >= G.GRID_FROM
     if use_grid:
         grid_t_max = _march_extent(means, scales)
         grid = grid_tracer.build_grid_auto(geo,
@@ -226,3 +227,33 @@ def radiance_consistency_loss(params, bake: Dict, cam_center: torch.Tensor,
         return torch.where(alive[:, None], err, torch.zeros_like(err)).sum() \
             / (torch.clamp(alive.sum(), min=1) * 3)
     return err.mean()
+
+
+IRRADIANCE_BUDGET = 4 << 30   # bytes of temporaries per irradiance_full chunk
+
+
+def irradiance_full(bake: Dict, env_term: torch.Tensor,
+                    vertex_normals: torch.Tensor, vertex_albedo: torch.Tensor,
+                    roughness: torch.Tensor) -> torch.Tensor:
+    """One-bounce irradiance at every primary sample [N, S, 3] (the Slang
+    ``render_irradiance``, calculate_radiance at gaussian_model.py:530-542):
+    ``irradiance_sample`` for each sample index.
+
+    The [N, 9S+25] table is built once.  Only the (surfel, sample) pairs
+    whose ray hit a surfel are shaded (the others are 0, as the reference's
+    ``where`` makes them), in chunks of pairs sized so that a chunk's table
+    rows and shading temporaries ([pairs, S, 4, 3] and its kin) stay near
+    IRRADIANCE_BUDGET; each pair's value is independent of the others, so
+    the chunking changes no value."""
+    n, s = bake["hit_idx"].shape
+    table = _hit_table(bake, env_term, vertex_normals, vertex_albedo,
+                       roughness)
+    hit = bake["hit_idx"].reshape(-1)
+    dirs = bake["incident_dirs"].reshape(-1, 3)
+    out = table.new_zeros(n * s, 3)
+    pairs = torch.nonzero(hit >= 0)[:, 0]
+    step = max(IRRADIANCE_BUDGET // (4 * (9 * s + 25 + 96 * s)), 1)
+    for p0 in range(0, pairs.shape[0], step):
+        p = pairs[p0:p0 + step]
+        out[p] = _irradiance_from_table(table, dirs[p], hit[p], s)
+    return out.reshape(n, s, 3)

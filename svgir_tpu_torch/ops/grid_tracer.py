@@ -23,7 +23,12 @@ the winners' records are plain tensor code.
 The JAX package's environment switches (``SVGIR_TRACE_BLOCK``,
 ``SVGIR_MERGE_IMPL``, ``SVGIR_BLOCKGEO_LIMIT``, ``SVGIR_MARCH_PALLAS``)
 are constants here: BLK 64, one stable merge after every visit, the
-field-major table always.  ``trace_visibility_grid`` is not ported yet.
+field-major table always.
+
+``trace_visibility_grid`` is the visibility tracer of
+``finetune_visibility`` at scale: it walks the same steps and tests the
+same blocks, with the reference's acceptance for visibility, and sums
+log(1 - alpha) over a ray's accepted pairs.
 """
 
 from __future__ import annotations
@@ -286,6 +291,31 @@ def _run_kmax(grid: TraceGrid) -> int:
     return int(min(8, max(2, np.ceil(3.47 * cell.max() / cell.min()))))
 
 
+STEP_CHUNK = 1 << 22   # (ray, step) pairs whose cells are formed at once
+
+
+def _step_cells(grid: TraceGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                *, n_steps: int) -> torch.Tensor:
+    """[R, n_steps] int32 cell of every step's midpoint: step j samples
+    o + (j dt + dt/2) d, each product and sum rounded as the per-step walk
+    rounds it.  Rays are taken in chunks of ``STEP_CHUNK // n_steps``."""
+    dt = grid_dt(grid)
+    mids = torch.arange(n_steps, dtype=torch.float32,
+                        device=rays_o.device) * dt + 0.5 * dt
+    out = []
+    step = max(STEP_CHUNK // n_steps, 1)
+    for r0 in range(0, rays_o.shape[0], step):
+        o = rays_o[r0:r0 + step, None]
+        d = rays_d[r0:r0 + step, None]
+        pos = o + mids[None, :, None] * d                   # [r, S, 3]
+        out.append(_cell_index(grid, pos.reshape(-1, 3)).reshape(
+            -1, n_steps))
+    if not out:
+        return torch.empty(0, n_steps, dtype=torch.int32,
+                           device=rays_o.device)
+    return torch.cat(out, 0)
+
+
 def _run_scan(grid: TraceGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
               *, n_steps: int, kmax: int):
     """The march's visit list.  Half-cell steps sample a cell 2-3 times in
@@ -297,22 +327,19 @@ def _run_scan(grid: TraceGrid, rays_o: torch.Tensor, rays_d: torch.Tensor,
       cells the cell of every step (int32)
     """
     r = rays_o.shape[0]
-    dt = grid_dt(grid)
     cap = grid.cell_cap
+    cells = _step_cells(grid, rays_o, rays_d, n_steps=n_steps)
     nb = torch.zeros(r, n_steps, dtype=torch.int32, device=rays_o.device)
-    cells = torch.empty_like(nb)
     prev = torch.full((r,), -1, dtype=torch.int32, device=rays_o.device)
     run_pos = torch.zeros_like(prev)
     for j in range(n_steps):
-        s = torch.tensor(float(j), device=rays_o.device) * dt + 0.5 * dt
-        cell = _cell_index(grid, rays_o + s * rays_d)
+        cell = cells[:, j]
         cnt = torch.clamp(grid.cell_count[cell.long()], max=cap)
         run_pos = torch.where((cell == prev) & (j > 0), run_pos + 1,
                               torch.zeros_like(run_pos))
         start = (cnt > 0) & (run_pos % kmax == 0)
         nb[:, j] = torch.where(start, (cnt + BLK - 1) // BLK,
                                torch.zeros_like(cnt))
-        cells[:, j] = cell
         prev = cell
     same = torch.cat([torch.zeros(r, 1, dtype=torch.bool, device=nb.device),
                       cells[:, 1:] == cells[:, :-1]], 1)
@@ -335,6 +362,16 @@ def count_visit_blocks(grid: TraceGrid, rays_o: torch.Tensor,
     nb, _, _ = _run_scan(grid, rays_o, rays_d, n_steps=n_steps,
                          kmax=_run_kmax(grid))
     return nb.sum(1)
+
+
+def count_occupied_steps(grid: TraceGrid, rays_o: torch.Tensor,
+                         rays_d: torch.Tensor, *, t_max: float,
+                         n_steps: int) -> torch.Tensor:
+    """[R] number of march steps whose cell holds a candidate (of the
+    small-surfel partition; ``t_max`` is not used, as in the reference)."""
+    del t_max
+    cells = _step_cells(grid, rays_o, rays_d, n_steps=n_steps)
+    return (grid.cell_count[cells.long()] > 0).sum(1)
 
 
 def _test_candidates(rows: torch.Tensor, rays_o: torch.Tensor,
@@ -408,3 +445,97 @@ def nearest_hits_grid(geo: tracing.SurfelGeometry, grid: TraceGrid,
     return {"t": torch.where(fin, full["t"], t),
             "idx": torch.where(fin, idx, torch.full_like(idx, -1)),
             "alpha": full["alpha"], "uv": full["uv"]}
+
+
+# ---------------------------------------------------------------------------
+# visibility along rays (trace.cu:196-280 semantics)
+# ---------------------------------------------------------------------------
+
+VIS_BATCH = 1 << 15   # visit blocks (of BLK candidates) tested at once
+
+
+def _vis_runs(grid: TraceGrid, rays_o, rays_d, *, t_max: float,
+              n_steps: int):
+    """The visits of the visibility walk: each run of consecutive steps in
+    one cell whose list is not empty, as (ray [V] int64, cell [V] int64,
+    t_lo [V], t_hi [V]).  A run of steps j0 .. j1-1 covers the union of
+    their spans [max(j dt, 0.01), min((j + 1) dt, t_max)), which is
+    [max(j0 dt, 0.01), min(j1 dt, t_max)); the spans do not overlap, so a
+    (ray, surfel) pair is accepted in at most one of them."""
+    dev = rays_o.device
+    cells = _step_cells(grid, rays_o, rays_d, n_steps=n_steps)
+    r = cells.shape[0]
+    start = torch.ones_like(cells, dtype=torch.bool)
+    start[:, 1:] = cells[:, 1:] != cells[:, :-1]
+    col = torch.arange(n_steps, device=dev)
+    nxt = torch.where(start, col[None], torch.full_like(cells, n_steps,
+                                                        dtype=torch.long))
+    nxt = torch.cat([nxt[:, 1:], torch.full((r, 1), n_steps,
+                                            dtype=torch.long, device=dev)], 1)
+    j1 = torch.flip(torch.cummin(torch.flip(nxt, [1]), 1).values, [1])
+    occupied = grid.cell_count[cells.long()] > 0
+    ray, j0 = torch.nonzero(start & occupied, as_tuple=True)
+    dt = grid_dt(grid)
+    t_lo = torch.clamp(j0.to(torch.float32) * dt, min=0.01)
+    t_hi = torch.clamp(j1[ray, j0].to(torch.float32) * dt, max=t_max)
+    return ray, cells[ray, j0].long(), t_lo, t_hi
+
+
+def _vis_terms(cand: Dict, opacity: torch.Tensor):
+    """log(1 - alpha) summed over the accepted candidates of each row and
+    their count (trace.cu:233: opacity >= 1/255 before the exp)."""
+    ok = cand["ok"] & (opacity >= tracing.ALPHA_MIN)
+    a = torch.where(ok, torch.clamp(cand["alpha"], max=tracing.ALPHA_MAX),
+                    torch.zeros_like(cand["alpha"]))
+    return torch.log1p(-a).sum(1), ok.sum(1, dtype=torch.int32)
+
+
+def trace_visibility_grid(geo: tracing.SurfelGeometry, grid: TraceGrid,
+                          rays_o: torch.Tensor, rays_d: torch.Tensor, *,
+                          t_max: float = 20.0, n_steps: int = 256) -> Dict:
+    """Grid-walk visibility (trace.cu semantics, as the brute
+    ``tracing.trace_visibility`` but with ``_test_candidates``' acceptance:
+    plane hit, ellipse dis <= 9, power <= 0, alpha >= 1/255, facing, the
+    step's span, and opacity >= 1/255).  Each run of steps in one cell is
+    visited once with the union of its steps' spans, every BLK-wide block
+    of the cell's list; the big surfels are tested once per ray over
+    [0.01, t_max).  The product of (1 - alpha) does not depend on order,
+    so the log terms of a ray are summed in float64.  Returns visibility
+    [R, 1] (0 below 0.9) and contribute [R, 1] (the accepted count)."""
+    r = rays_o.shape[0]
+    dev = rays_o.device
+    ray, cell, t_lo, t_hi = _vis_runs(grid, rays_o, rays_d, t_max=t_max,
+                                      n_steps=n_steps)
+    nb = (torch.clamp(grid.cell_count[cell], max=grid.cell_cap)
+          + BLK - 1) // BLK
+    # one entry per (visit, block of the visit's cell)
+    first = torch.repeat_interleave(grid.block_start[cell].long(), nb)
+    visit = torch.repeat_interleave(torch.arange(ray.shape[0], device=dev),
+                                    nb)
+    row = first + torch.arange(visit.shape[0], device=dev) \
+        - torch.repeat_interleave(torch.cumsum(nb, 0) - nb, nb)
+    log_t = torch.zeros(r, dtype=torch.float64, device=dev)
+    count = torch.zeros(r, dtype=torch.int32, device=dev)
+    for e0 in range(0, row.shape[0], VIS_BATCH):
+        v = visit[e0:e0 + VIS_BATCH]
+        rr = ray[v]
+        rows = grid.block_geo[row[e0:e0 + VIS_BATCH]]
+        rows = rows.reshape(-1, PACK_W, BLK).transpose(1, 2)
+        cand = _test_candidates(rows, rays_o[rr], rays_d[rr], t_lo[v],
+                                t_hi[v])
+        lt, n = _vis_terms(cand, rows[..., 24])
+        log_t.index_add_(0, rr, lt.double())
+        count.index_add_(0, rr, n)
+    if grid.big_ids.shape[0]:
+        packed = pack_geometry(geo)
+        lo = torch.full((), 0.01, device=dev)
+        hi = torch.full((), t_max, device=dev)
+        for b0 in range(0, grid.big_ids.shape[0], BIG_BLOCK):
+            sub = packed[grid.big_ids[b0:b0 + BIG_BLOCK].long()][None]
+            cand = _test_candidates(sub, rays_o, rays_d, lo, hi)
+            lt, n = _vis_terms(cand, sub[..., 24])
+            log_t += lt.double()
+            count += n
+    v = torch.exp(log_t.to(torch.float32))
+    v = torch.where(v < 0.9, torch.zeros_like(v), v)
+    return {"visibility": v[:, None], "contribute": count[:, None]}

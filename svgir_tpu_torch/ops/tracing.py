@@ -5,7 +5,9 @@ replays the sampling-SH march over a ray's sorted hits.
 Mirrors ``svgir_tpu.ops.tracing`` (reference ``intersect_test.slang:
 94-150, 356-424, 1879-1990``).  ``nearest_hits`` is the bake's tracer for
 small scenes and the oracle of the grid march (``ops/grid_tracer.py``).
-``trace_visibility`` is not ported yet.
+``trace_visibility`` is the brute-force visibility tracer of
+``finetune_visibility`` (trace.cu:196-280): a masked product of
+(1 - alpha) over all (ray, surfel) pairs at each pair's max-density point.
 
 Order of evaluation.  For thin surfels (z scale ~0, inverse covariance up
 to 1e12) the hit test's power ``-0.5 p^T Sigma^-1 p`` cancels
@@ -34,7 +36,7 @@ from svgir_tpu_torch.utils.transforms import normalize, quat_to_rotmat
 
 __all__ = ["ALPHA_MIN", "ALPHA_MAX", "SurfelGeometry",
            "build_surfel_geometry", "surfel_test", "nearest_hits",
-           "radiance_march"]
+           "radiance_march", "trace_visibility"]
 
 
 class SurfelGeometry(NamedTuple):
@@ -178,6 +180,64 @@ def nearest_hits(geo: SurfelGeometry, rays_o: torch.Tensor,
                                1, sel[..., None].expand(-1, -1, 2)),
         }
     return hits
+
+
+def _pair_terms(geo: SurfelGeometry, rays_o, rays_d, sl):
+    """Per (ray, surfel of the slice ``sl``) terms [R, G] of the visibility
+    tracer: t of the max-density point along the ray, the power (log
+    density) there and alpha = opacity * exp(power).  Each sum and product
+    in the reference's order (tracing.py's ``_pair_terms``)."""
+    mu = geo.means[sl]
+    ic = geo.inv_cov[sl]
+    d = rays_d
+    mo = mu[None] - rays_o[:, None]                          # [R, G, 3]
+    qx = ic[:, 0] * mo[..., 0] + ic[:, 1] * mo[..., 1] + ic[:, 2] * mo[..., 2]
+    qy = ic[:, 1] * mo[..., 0] + ic[:, 3] * mo[..., 1] + ic[:, 4] * mo[..., 2]
+    qz = ic[:, 2] * mo[..., 0] + ic[:, 4] * mo[..., 1] + ic[:, 5] * mo[..., 2]
+    t1 = qx * d[:, None, 0] + qy * d[:, None, 1] + qz * d[:, None, 2]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    t2 = (ic[None, :, 0] * dx * dx + ic[None, :, 3] * dy * dy
+          + ic[None, :, 5] * dz * dz
+          + 2 * (ic[None, :, 1] * dx * dy + ic[None, :, 2] * dx * dz
+                 + ic[None, :, 4] * dy * dz))
+    t = t1 / torch.where(t2 == 0, torch.full_like(t2, 1e-12), t2)
+    hx = mo[..., 0] - t * dx
+    hy = mo[..., 1] - t * dy
+    hz = mo[..., 2] - t * dz
+    power = -0.5 * (ic[None, :, 0] * hx * hx + ic[None, :, 3] * hy * hy
+                    + ic[None, :, 5] * hz * hz
+                    + 2 * (ic[None, :, 1] * hx * hy + ic[None, :, 2] * hx * hz
+                           + ic[None, :, 4] * hy * hz))
+    alpha = geo.opacity[sl][None] * torch.exp(power)
+    return t, power, alpha
+
+
+def trace_visibility(geo: SurfelGeometry, rays_o: torch.Tensor,
+                     rays_d: torch.Tensor, *, chunk: int = 512) -> Dict:
+    """Opacity along rays [R, 3] (callers offset the origins by 0.05 d,
+    bvh/__init__.py:59), over the surfels in chunks of ``chunk``.  A pair
+    counts where the surfel is valid with opacity >= 1/255, the ray does
+    not meet its back (n . d <= 0), and at the max-density point t >= 0.01
+    and power <= 0; there is no ellipse test.  T = exp(sum log(1 -
+    min(alpha, 0.99))), set to 0 below 0.9.  Returns visibility [R, 1] and
+    contribute [R, 1] (the count of pairs)."""
+    n = geo.means.shape[0]
+    r = rays_o.shape[0]
+    dev = rays_o.device
+    log_t = torch.zeros(r, device=dev)
+    count = torch.zeros(r, dtype=torch.int32, device=dev)
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(c0 + chunk, n))
+        t, power, alpha = _pair_terms(geo, rays_o, rays_d, sl)
+        ok = (geo.valid[sl][None] & (geo.opacity[sl][None] >= ALPHA_MIN)
+              & (_dot3(geo.normal[sl][None], rays_d[:, None]) <= 0)
+              & (t >= 0.01) & (power <= 0))
+        a = torch.where(ok, alpha, torch.zeros_like(alpha))
+        log_t = log_t + torch.log1p(-torch.clamp(a, max=ALPHA_MAX)).sum(1)
+        count = count + ok.sum(1, dtype=torch.int32)
+    vis = torch.exp(log_t)
+    vis = torch.where(vis < 0.9, torch.zeros_like(vis), vis)
+    return {"visibility": vis[:, None], "contribute": count[:, None]}
 
 
 def radiance_march(hits: Dict, self_index: torch.Tensor, shs: torch.Tensor,

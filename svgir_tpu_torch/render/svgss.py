@@ -12,7 +12,10 @@ indirect, VS = 64); then the stage-2 loss (svgss.py:265-403).
 The env is looked up once per call at the bake's incident directions
 (kernel B7 through ``models/lights``); the shading and the consistency
 loss share that lookup.  The eval render looks the env up again at every
-pixel's world direction for the env composites.
+pixel's world direction for the env composites.  The relighting
+evaluation replaces the learnable env with a fixed light (``env_fn`` and,
+for the bake's precomputed grid coordinates, ``env_qxy_fn``) and rescales
+the base colour per channel (``base_color_scale``).
 """
 
 from __future__ import annotations
@@ -37,19 +40,23 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
                       bg: torch.Tensor, *, is_training: bool = True,
                       alive: Optional[torch.Tensor] = None,
                       sh_degree: int = 3,
+                      base_color_scale: Optional[torch.Tensor] = None,
+                      env_fn=None, env_qxy_fn_override=None,
                       cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
-    """svgss.py:15-262 with the learnable env map ``env_params``.
-    ``bake``: the radiance bake's buffers (``incident_dirs``,
-    ``incident_areas``, ``incident_qxy``, ``visibility``, ``hit_idx``,
-    ``uv``).  (The relighting callers' env and base-color overrides are
-    not ported yet.)"""
+    """svgss.py:15-262.  ``bake``: the radiance bake's buffers
+    (``incident_dirs``, ``incident_areas``, ``incident_qxy``,
+    ``visibility``, ``hit_idx``, ``uv``).  The env is the learnable map
+    ``env_params`` unless ``env_fn(dirs)`` replaces it; then the bake's
+    ``incident_qxy`` go to ``env_qxy_fn_override(qxy)`` where one is given,
+    else the directions to ``env_fn``.  ``base_color_scale`` [3] rescales
+    the base colour per channel."""
     n = params["xyz"].shape[0]
     xyz = params["xyz"]
     opacity = G.get_opacity(params)[:, 0]
     if alive is not None:
         opacity = torch.where(alive, opacity, torch.zeros_like(opacity))
 
-    base_color = G.get_base_color(params)                        # [N, 12]
+    base_color = G.get_base_color(params, base_color_scale)      # [N, 12]
     roughness = G.get_roughness(params)                          # [N, 4]
     shading_normal = G.get_shading_normal(params)                # [N, 4, 3]
     if not is_training:
@@ -57,14 +64,20 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     radiances = G.get_radiances(params)                          # [N, S, 3]
     viewdirs = normalize(camera.camera_center[None] - xyz)
 
-    def env_fn(dirs):
-        return LT.direct_light(env_params, dirs)
+    env_qxy_fn = None
+    if env_fn is None:
+        def env_fn(dirs):
+            return LT.direct_light(env_params, dirs)
+
+        def env_qxy_fn(q):
+            return LT.direct_light_qxy(env_params, q[..., 0], q[..., 1])
+    elif env_qxy_fn_override is not None:
+        env_qxy_fn = env_qxy_fn_override
 
     # one env evaluation, shared by the shading and the consistency loss
     qxy = bake.get("incident_qxy")
-    if qxy is not None:
-        env_radiance = LT.direct_light_qxy(env_params, qxy[..., 0],
-                                           qxy[..., 1])
+    if qxy is not None and env_qxy_fn is not None:
+        env_radiance = env_qxy_fn(qxy)
     else:
         env_radiance = env_fn(bake["incident_dirs"])
 
@@ -251,12 +264,15 @@ def calculate_loss_svgss(camera, params, bake, results,
 def render_svgss(camera, params, bg, *, bake=None, env_params=None,
                  opt: OptimizationConfig = None, iteration=0,
                  is_training=False, alive=None, sh_degree=3,
+                 base_color_scale=None, env_fn=None, env_qxy_fn=None,
                  cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
     """svgss.py:406-424: render, loss, then rotate the normals to world
-    space after the loss (the losses see view space)."""
+    space after the loss (the losses see view space).  ``env_fn``,
+    ``env_qxy_fn`` and ``base_color_scale`` as ``render_view_svgss``'s."""
     results = render_view_svgss(
         camera, params, bake, env_params, bg, is_training=is_training,
-        alive=alive, sh_degree=sh_degree, cfg=cfg)
+        alive=alive, sh_degree=sh_degree, base_color_scale=base_color_scale,
+        env_fn=env_fn, env_qxy_fn_override=env_qxy_fn, cfg=cfg)
     if is_training:
         loss, tb = calculate_loss_svgss(
             camera, params, bake, results, opt, env_params, iteration,

@@ -8,7 +8,7 @@ binner-overflow growth of ``max_instances``, cameras staged on the device
 once, and the periodic checkpoint and test-PSNR tasks.  Stage 2
 (``train_stage2``) starts with the radiance bake over the alive surfels
 (``bake_radiance_compact``), unless it is given one.  The periodic
-training visualisation (``vis_interval``) is not ported yet and raises.
+tasks are the checkpoints, the test PSNR and the training visualisation.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+from svgir_tpu_torch.eval.nvs import save_training_vis
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models import lights as LT
 from svgir_tpu_torch.models import radiance as RAD
@@ -111,23 +112,20 @@ def camera_for_iter(cams: List, it: int, seed: int):
 
 
 class PeriodicTasks:
-    """Mid-run checkpoints and test PSNR (train.py:229-316): a
-    ``chkpnt<iter>.npz`` every ``checkpoint_interval`` iterations into
-    ``out_dir``, and the mean PSNR of up to ``MAX_TEST_VIEWS`` test views
-    every ``test_interval``.  The training visualisation
-    (save_training_vis, train.py:319-363) is not ported yet:
-    ``vis_interval`` must be 0."""
+    """Mid-run checkpoints, test PSNR and training visualisation
+    (train.py:229-363): a ``chkpnt<iter>.npz`` every
+    ``checkpoint_interval`` iterations into ``out_dir``, the mean PSNR of
+    up to ``MAX_TEST_VIEWS`` test views every ``test_interval``, and every
+    ``vis_interval`` the buffers of one view (the iteration's training
+    camera) side by side in ``out_dir/visualize/iter_<iter>.png``."""
 
     def __init__(self, *, out_dir: Optional[str] = None,
                  checkpoint_interval: int = 0,
                  test_cameras: Optional[List] = None,
                  test_interval: int = 0, vis_interval: int = 0,
                  device="cuda"):
-        if vis_interval:
-            raise NotImplementedError(
-                "the periodic training visualisation (eval/nvs."
-                "save_training_vis, ROADMAP Queue A 4) is not ported to "
-                "svgir_tpu_torch yet: vis_interval must be 0")
+        self.out_dir = out_dir
+        self.vis_iv = vis_interval if out_dir else 0
         self.ckpt_iv = checkpoint_interval if out_dir else 0
         self.test_cams = stage_cameras(
             [strip_meta(c) for c in (test_cameras or [])[:MAX_TEST_VIEWS]],
@@ -135,8 +133,8 @@ class PeriodicTasks:
         self.test_iv = test_interval if self.test_cams else 0
 
     @torch.no_grad()
-    def run(self, it: int, *, eval_fn: Callable,
-            save_fn: Callable) -> Dict[str, float]:
+    def run(self, it: int, *, eval_fn: Callable, save_fn: Callable,
+            vis_cam=None) -> Dict[str, float]:
         """Extra log entries ({} when nothing fired)."""
         extras: Dict[str, float] = {}
         if self.ckpt_iv and it % self.ckpt_iv == 0:
@@ -149,6 +147,12 @@ class PeriodicTasks:
                 mse = torch.mean(torch.square(pred - cam.image))
                 psnrs.append(float(-10.0 * torch.log10(mse)))
             extras["test_psnr"] = float(sum(psnrs) / len(psnrs))
+        if self.vis_iv and it % self.vis_iv == 0:
+            cam = vis_cam if vis_cam is not None else (
+                self.test_cams[0] if self.test_cams else None)
+            if cam is not None:
+                save_training_vis(os.path.join(self.out_dir, "visualize"),
+                                  it, eval_fn(cam), gt_image=cam.image)
         return extras
 
 
@@ -227,7 +231,8 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
                 it, state, opt_state, opt, extent, white_background,
                 split_noise)
 
-        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn)
+        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
+                              vis_cam=cam)
         if it % log_every == 0 or it == iterations or extras:
             entry = {"iter": it, "psnr": float(tb["psnr"]),
                      "loss": float(tb["loss"]),
@@ -453,7 +458,8 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         if it % 1000 == 0:
             radiance_lr = 0.0
 
-        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn)
+        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
+                              vis_cam=cam)
         if it % log_every == 0 or it == iterations or extras:
             entry = {"iter": it, "psnr": float(tb["psnr"]),
                      "psnr_pbr": float(tb["psnr_pbr"]),
@@ -476,7 +482,8 @@ MAX_K_HITS = 128        # the exhausted re-bake doubles k_hits up to this
 
 def bake_radiance_compact(params, alive, *, sample_num: int,
                           azimuth: Optional[torch.Tensor] = None,
-                          k_hits: int = 16) -> Dict:
+                          k_hits: int = 16,
+                          max_k_hits: int = MAX_K_HITS) -> Dict:
     """Bake over the alive surfels only, then expand the buffers to
     capacity rows (dead rows: radiance 0, visibility 1, areas 2*pi, hit
     -1) with the hit indices mapped back to capacity rows.
@@ -485,7 +492,7 @@ def bake_radiance_compact(params, alive, *, sample_num: int,
     Rays that use up their K-hit list composite a truncated radiance, which
     the reference march never does: when more than 1% of the rays do, the
     bake warns and runs again with ``k_hits`` doubled, up to
-    ``MAX_K_HITS``."""
+    ``max_k_hits`` (``max_k_hits=k_hits``: one pass)."""
     cap = alive.shape[0]
     idx = torch.nonzero(alive)[:, 0]                       # compact -> cap
     n_alive = idx.shape[0]
@@ -497,7 +504,7 @@ def bake_radiance_compact(params, alive, *, sample_num: int,
             G.get_opacity(sub)[:, 0], G.get_shs(sub), sample_num=sample_num,
             azimuth=azimuth, k_hits=k_hits)
         frac = float(bake_c["exhausted_frac"])
-        if frac <= EXHAUSTED_TOL or k_hits >= MAX_K_HITS:
+        if frac <= EXHAUSTED_TOL or k_hits >= max_k_hits:
             if frac > EXHAUSTED_TOL:
                 print(f"WARNING: radiance bake still has {frac:.1%} "
                       f"exhausted rays at k_hits={k_hits} (max reached)",

@@ -5,8 +5,10 @@ its instance-cap probe, on the CPU.
 (tests/test_data.py's writer, with a 300-point cloud as tests/test_cli.py
 gives it): stage 1, a resume of stage 1 from its mid-run checkpoint that
 must end where the uninterrupted run ended (1e-6, alive masks equal), and
-stage 2 from the stage-1 checkpoint.  The parser must offer every flag of
-the repository's ``train.py`` with the same default.  The probe is held to
+stage 2 from the stage-1 checkpoint; ``--save_training_vis``, ``--eval``
+and ``--finetune_visibility`` with their outputs, and the relighting CLI
+on a stage-2 checkpoint.  The parser must offer every flag of the
+repository's ``train.py`` with the same default.  The probe is held to
 svgir_tpu's ``snug_instance_cap``: both count the same instances.
 """
 
@@ -143,20 +145,78 @@ def test_train_cli_stages_and_resume(scene, tmp_path, monkeypatch):
     ["--save_training_vis"],
     ["-t", "render_relight", "--finetune_visibility"],
     ["--eval"]])
-def test_train_cli_refuses_what_is_not_ported(scene, tmp_path, flags):
+def test_train_cli_refuses_what_is_not_ported(scene, tmp_path, flags,
+                                              monkeypatch):
+    """The three flags the CLI once refused (the name is kept from then)
+    now run and write their outputs: the training visualisation PNGs; the
+    visibility fine-tuning before stage 2 (called with its default 1,000
+    iterations and a generator seeded with --seed + 7; run here for 20),
+    whose stage-2 checkpoint the relighting CLI then evaluates under an
+    HDR light; the end-of-run test render with its metrics."""
+    import cv2
+    from svgir_tpu_torch.cli import eval_relighting as cli_relight
+    monkeypatch.setattr(trainer, "tensorboard_logger", lambda _: None)
+    out = str(tmp_path / "out")
+    if flags == ["--save_training_vis"]:
+        cli.main(["-s", scene, "-m", out] + STAGE1 + flags
+                 + ["--save_training_vis_iteration", "4"])
+        for it in (4, 8):
+            img = cv2.imread(os.path.join(out, "visualize",
+                                          f"iter_{it:06d}.png"))
+            # ground truth, render, normal, pseudo-normal, depth, opacity
+            assert img.shape == (32, 6 * 32, 3), img.shape
+        return
     if flags == ["--eval"]:    # a test split for --eval to render
         with open(os.path.join(scene, "transforms_train.json")) as f:
             frames = json.load(f)
         with open(os.path.join(scene, "transforms_test.json"), "w") as f:
             json.dump(frames, f)
-    out = str(tmp_path / "out")
-    try:
-        with pytest.raises(NotImplementedError, match="Queue A"):
+        try:
             cli.main(["-s", scene, "-m", out] + STAGE1 + flags)
-    finally:
-        if flags == ["--eval"]:
+        finally:
             os.remove(os.path.join(scene, "transforms_test.json"))
-    assert not os.path.exists(os.path.join(out, "train_log.jsonl"))
+        with open(os.path.join(out, "eval", "metrics.json")) as f:
+            m = json.load(f)
+        assert m["n_views"] == 3 and np.isfinite(m["psnr"])
+        assert m["ssim"] > 0 and "unavailable" in m["lpips"]
+        assert os.path.exists(os.path.join(out, "metric_eval.txt"))
+        for name in ("00002.png", "00002_depth.png", "00002_normal.png"):
+            assert os.path.exists(os.path.join(out, "eval", "renders", name))
+        return
+
+    # stage 1, then stage 2 with --finetune_visibility
+    cli.main(["-s", scene, "-m", out] + STAGE1)
+    calls, finetune = [], TG.finetune_visibility
+
+    def recording(state, **kw):
+        new = finetune(state, **{**kw, "iterations": 20})
+        calls.append((kw, state["params"], new["params"]))
+        return new
+    monkeypatch.setattr(TG, "finetune_visibility", recording)
+    out2 = str(tmp_path / "out2")
+    cli.main(["-s", scene, "-m", out2, "-c", os.path.join(out, "chkpnt8.npz"),
+              "--iterations", "10", "--sample_num", "4", "--env_resolution",
+              "16", "--position_lr_max_steps", "10", "--max_instances",
+              "4096", "--device", "cpu", "--quiet"] + flags)
+    (kw, before, after), = calls
+    assert "iterations" not in kw and kw["generator"].initial_seed() == 7
+    assert not torch.equal(after["visibility_rest"], before["visibility_rest"])
+
+    # the relighting CLI on that stage-2 checkpoint, under a written HDR
+    hdr = str(tmp_path / "sky.hdr")
+    sky = np.ones((16, 32, 3), np.float32)
+    sky[:8] *= np.array([2.0, 1.5, 1.0], np.float32)
+    assert cv2.imwrite(hdr, sky[..., ::-1].copy())
+    res = cli_relight.main(["-s", scene, "-m", out2, "-c",
+                            os.path.join(out2, "chkpnt10.npz"), "--hdr", hdr,
+                            "--sample_num", "4", "--max_instances", "4096",
+                            "--device", "cpu"])
+    with open(os.path.join(out2, "eval_relight", "sky", "metrics.json")) as f:
+        m = json.load(f)
+    assert m == res["sky"] and m["n_views"] == 3
+    assert np.isfinite(m["pbr_psnr"]) and "unavailable" in m["pbr_lpips"]
+    assert os.path.exists(os.path.join(out2, "eval_relight", "sky",
+                                       "00002_pbr.png"))
 
 
 def test_snug_instance_cap_matches_jax(scene, monkeypatch):

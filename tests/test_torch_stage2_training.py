@@ -132,17 +132,26 @@ def test_train_stage2_zeroes_the_radiance_lr_after_a_thousand(
                                 dict(test_interval=5), dict(vis_interval=5)],
                          ids=["checkpoint", "test", "vis"])
 def test_train_stage2_refuses_what_is_not_ported(kw, tmp_path):
-    """Of the periodic tasks only the training visualisation is not
-    ported, and ``vis_interval`` is refused; the checkpoints (with the env
-    map and the bake) and the test PSNR run."""
+    """Every periodic task runs now (the name is kept from when the
+    training visualisation was refused): the checkpoints (with the env
+    map and the bake), the test PSNR, and the training visualisation, which
+    writes the iteration's view beside its ground truth into
+    ``visualize/iter_<iter>.png``."""
     state, cams, bake = _setup()
     args = dict(bake=bake, raster_cfg=CFG, sample_num=S, first_iter=0,
                 iterations=2, log_every=10, device="cpu",
                 out_dir=str(tmp_path))
     args.update({k: v // 5 for k, v in kw.items()})   # every iteration
     if "vis_interval" in kw:
-        with pytest.raises(NotImplementedError, match="vis_interval"):
-            train_stage2(state, cams, OptimizationConfig(), **args)
+        import cv2
+        train_stage2(state, cams, OptimizationConfig(), **args)
+        for it in (1, 2):
+            img = cv2.imread(str(tmp_path / "visualize"
+                                 / f"iter_{it:06d}.png"))
+            # ground truth, render, pbr, base colour, roughness, local
+            # lights, visibility, normal, pseudo-normal, depth, opacity
+            assert img.shape == (RES, 11 * RES, 3), img.shape
+            assert img.std() > 0
         return
     if "test_interval" in kw:
         args["test_cameras"] = cams
