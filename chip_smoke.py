@@ -237,6 +237,47 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  different functions by design); the grid on the card
                  against the CPU on 2,048 rays.
 
+  The evaluation and viewing commands (on phase 25's scene and
+  checkpoints: chkpnt60.npz of stage 1, chkpnt63.npz and point_cloud.ply
+  of stage 2, about 94,000 surfels), render_sh and the stand-in harness:
+  28. nvs        python -m svgir_tpu_torch.cli.eval_nvs's main four times
+                 at the cap probed over the scene's views: chkpnt60 at the
+                 default --eval_scale 4 (200x200) and at 1 (800x800),
+                 chkpnt63 with -t render_relight --skip_train, and a copy of
+                 it without its bake (the CLI bakes once at k 16, B8);
+                 each metrics.json finite and equal to the printed JSON, no
+                 overflow, B1-B3 launched in each run, B7's forward in the
+                 stage-2 runs, B8 only in the one that bakes ([nvs] lines:
+                 ms a view, the bake's seconds).
+  29. relighting cli.relighting on a config directory that composes
+                 point_cloud.ply twice (the identity; turned 2.8 rad about y
+                 to face the frames, scaled 0.8, moved 2.5) with the first
+                 12 frames of
+                 configs/example/ (800x800, a light rotation each), under
+                 both HDRs, capturing pbr_env, normal and roughness; then
+                 the PLY alone in orbit form with --rotate_light (8 frames at
+                 512): the composition twice the surfels with its second
+                 half apply_transform's, one bake a run, every frame PNG,
+                 the mp4s written or skipped with the message, B1-B3, B7's
+                 forward and B8 launched; normal_eval of the normal frames
+                 against themselves (MAE below MAE_SELF_TOL); gui
+                 --headless on chkpnt63 for 4 frames at 512 ([relighting]
+                 lines: the bake, ms a frame, the video).
+  30. render_sh  render_sh_image on the bench surfels facing inward at
+                 800x800: the grid tracer on 640,000 camera rays in chunks
+                 of 65,536; B8 against march_plain slot for slot on the
+                 first chunk (the top rows: no ray hits) and on the chunk
+                 whose rays hit most; the image against the brute tracer
+                 on the 4,096 rays nearest its centre (hits equal, render
+                 within TOL_RENDER_SH); B8 on both chunks timed with its
+                 bound.
+  31. standin    eval/standin.run_standin_parity on the card at
+                 tests/test_e2e_parity.py's pipeline configuration (its
+                 thresholds must hold) and at its medium one (its five
+                 numbers beside the thresholds and the JAX package's CPU
+                 numbers: a finding, not a gate); launches of the stage-2
+                 kernels.
+
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
 """
@@ -1401,11 +1442,13 @@ MARCH_STEP_OPS = 33
 class Recorder:
     """Wraps ``mod.name`` while open: records each call's arguments,
     result and wall seconds (synchronized on both sides); with ``keep``,
-    only the first ``keep`` calls (``secs`` has every call's seconds)."""
+    only the first ``keep`` calls (``secs`` has every call's seconds, and
+    ``seen`` every call's ``inspect(result)``)."""
 
-    def __init__(self, mod, name, keep=None):
+    def __init__(self, mod, name, keep=None, inspect=None):
         self.mod, self.name, self.calls = mod, name, []
         self.keep, self.secs = keep, []
+        self.inspect, self.seen = inspect, []
 
     def __enter__(self):
         import torch
@@ -1417,6 +1460,8 @@ class Recorder:
             out = self.fn(*a, **kw)
             torch.cuda.synchronize()
             self.secs.append(time.perf_counter() - t0)
+            if self.inspect is not None:
+                self.seen.append(self.inspect(out))
             if self.keep is None or len(self.calls) < self.keep:
                 self.calls.append((a, kw, out, self.secs[-1]))
             return out
@@ -2477,7 +2522,8 @@ def write_blender_scene(root, state, dev, n_frames=8, res=800, n_test=2):
 
 
 def run_trainer(card, dev):
-    """Phases 24-25: densification at full width and the training CLI."""
+    """Phases 24-25: densification at full width and the training CLI;
+    then phases 28-29 on the CLI's scene and checkpoints."""
     import json
     import os
     import tempfile
@@ -2778,7 +2824,13 @@ def run_trainer(card, dev):
             f"irradiance_full " + ", ".join(f"{c[3]:.2f}" for c in
                                              r_irr.calls)
             + f" s; launches {lc}; card: {card}")
-    log(f"[cli] {time.time() - t_cli:.1f} s")
+        log(f"[cli] {time.time() - t_cli:.1f} s")
+
+        # ---- 28-29. the evaluation and viewing commands on these files ---
+        run_eval_commands(card, dev, tmp, scene,
+                          os.path.join(out_a, "chkpnt60.npz"),
+                          os.path.join(out_c, "chkpnt63.npz"),
+                          os.path.join(out_c, "point_cloud.ply"), hdrs)
 
 
 # ---------------------------------------------------------------------------
@@ -3257,6 +3309,489 @@ def run_relight(card, dev):
                              f"{n_cnt} counts")
     log(f"[visibility] {time.time() - t_phase:.1f} s")
     return report
+
+
+# ---------------------------------------------------------------------------
+# the evaluation and viewing commands, render_sh, the stand-in harness
+# ---------------------------------------------------------------------------
+
+EVAL_KERNELS = ("binning_counts", "binning_instances", "blend_forward")
+TRAJ_FRAMES = 12        # frames of configs/example/ the relighting runs
+# normal_eval of frames against themselves: arccos of a float32 dot
+# product a few last places below 1 is up to ~0.04 degrees, not 0
+MAE_SELF_TOL = 0.05     # degrees
+RENDER_SH_RAYS = 4096   # rays near the image centre held grid vs brute
+TOL_RENDER_SH = 1e-5    # tests/test_render_sh.py's grid vs brute
+# tests/test_e2e_parity.py: the thresholds of each configuration and, for
+# the medium one, the JAX package's CPU numbers in its docstring
+STANDIN = {
+    "pipeline": (dict(n_gt=250, n_views=8, res=40, sample_num=8,
+                      stage1_iters=200, stage2_iters=100, init_points=120,
+                      capacity=512),
+                 {"n_alive_after_stage1": 150, "stage1_nvs_psnr": 12.0,
+                  "stage2_pbr_psnr": 11.5, "relight_psnr": 12.0,
+                  "albedo_psnr": 16.0}, None),
+    "medium": (dict(n_gt=1000, n_views=12, res=64, sample_num=8,
+                    stage1_iters=600, stage2_iters=250, init_points=400,
+                    capacity=16384),
+               {"n_alive_after_stage1": 8000, "stage1_nvs_psnr": 15.6,
+                "stage2_pbr_psnr": 16.6, "relight_psnr": 17.0,
+                "albedo_psnr": 18.5},
+               {"n_alive_after_stage1": 12711, "stage1_nvs_psnr": 17.1,
+                "stage2_pbr_psnr": 18.1, "relight_psnr": 18.5,
+                "albedo_psnr": 20.0}),
+}
+
+
+def _overflowed(res):
+    return bool(res["overflow"].any()) if "overflow" in res else False
+
+
+def probe_views(state, cams):
+    """The snug instance cap of every view of ``cams`` (the probe itself
+    bins only three), the largest of them."""
+    from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.train import cap_probe
+    return max(cap_probe.snug_instance_cap(state["params"], [c],
+                                           RasterConfig(),
+                                           alive=state["alive"])
+               for c in cams)
+
+
+def write_relight_config(root, ply, example):
+    """A config directory composing ``ply`` twice (at the identity, and
+    turned 2.8 rad about y, scaled by 0.8 and moved 2.5) with the first
+    TRAJ_FRAMES frames of ``example``'s trajectory and light rotations.
+    Those frames look along +z from z = -3 to -1.2, where phase 25's
+    surfels (identity rotations from the bootstrap cloud, barely trained)
+    show their back faces, which the rasterizer culls: the turn makes the
+    second copy face them, and its move (to 35 degrees off +z, on the far
+    side) keeps it in their view.  Returns the second transform."""
+    import json
+    import os
+
+    import numpy as np
+
+    os.makedirs(root)
+    a, b = 2.8, math.radians(-35.0)
+    tf = np.eye(4)
+    tf[:3, :3] = 0.8 * np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                                 [-math.sin(a), 0, math.cos(a)]])
+    tf[:3, 3] = [2.5 * math.sin(b), 0.0, 2.5 * math.cos(b)]
+    with open(os.path.join(root, "transform.json"), "w") as f:
+        json.dump({"a": {"path": ply, "transform": np.eye(4).ravel()
+                         .tolist()},
+                   "b": {"path": ply, "transform": tf.ravel().tolist()}}, f)
+    for name, key in (("trajectory", "trajectory"),
+                      ("light_transform", "transform")):
+        with open(os.path.join(example, f"{name}.json")) as f:
+            d = json.load(f)
+        d[key] = {k: v for k, v in list(d[key].items())[:TRAJ_FRAMES]}
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(d, f)
+    return tf
+
+
+def run_eval_commands(card, dev, tmp, scene, ck60, ck63, ply, hdrs):
+    """Phases 28-29: the eval_nvs, relighting, normal_eval and gui
+    commands on phase 25's scene and checkpoints."""
+    import contextlib
+    import io
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.cli import eval_nvs, gui, normal_eval
+    from svgir_tpu_torch.cli import relighting as cli_rl
+    from svgir_tpu_torch.data import readers
+    from svgir_tpu_torch.eval import nvs
+    from svgir_tpu_torch.eval import relighting as REL
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.render import stage1, svgss
+    from svgir_tpu_torch.train import checkpoint as CK
+
+    t_phase = time.time()
+    # ---- 28. eval_nvs: stage 1 at scale 4 and 1, stage 2, its bake -----
+    sc = readers.load_scene(scene, eval_split=True)
+    cams = sc.train_cameras + sc.test_cameras
+    _, t63 = CK.load_checkpoint(ck63, device=dev)
+    cap = max(probe_views(CK.load_checkpoint(ck, device=dev)[1]["state"],
+                          cams) for ck in (ck60, ck63))
+    nobake = os.path.join(tmp, "chkpnt63_nobake.npz")
+    CK.save_checkpoint(nobake, 63, t63["state"], t63["opt"], env=t63["env"])
+    n63 = int(t63["state"]["alive"].sum())
+    del t63
+    runs = (("stage 1, scale 4", ["-c", ck60], EVAL_KERNELS),
+            ("stage 1, scale 1", ["-c", ck60, "--eval_scale", "1"],
+             EVAL_KERNELS),
+            ("stage 2, its bake", ["-c", ck63, "-t", "render_relight",
+                                   "--skip_train"],
+             EVAL_KERNELS + ("env_lookup_forward",)),
+            ("stage 2, no bake", ["-c", nobake, "-t", "render_relight",
+                                  "--skip_train"],
+             EVAL_KERNELS + ("env_lookup_forward", "march")))
+    for i, (label, flags, needed) in enumerate(runs):
+        out = os.path.join(tmp, f"nvs{i}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Recorder(stage1, "render_stage1", keep=0,
+                      inspect=_overflowed) as r1, \
+                Recorder(svgss, "render_svgss", keep=0,
+                         inspect=_overflowed) as r2, \
+                Recorder(nvs, "render_set", keep=0) as r_set, \
+                Recorder(eval_nvs, "bake_once", keep=0) as r_bake, \
+                contextlib.redirect_stdout(io.StringIO()) as printed:
+            t0 = time.perf_counter()
+            res = eval_nvs.main(["-s", scene, "-m", out, "--max_instances",
+                                 str(cap)] + flags)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        lc = kernels.launches()
+        check_launches(lc, f"eval_nvs {label}",
+                       at_least=[(k, 1) for k in needed],
+                       none=("blend_backward", "env_lookup_backward")
+                       + (() if "march" in needed else ("march",)))
+        if json.loads(printed.getvalue()) != res:
+            raise AssertionError(f"eval_nvs {label}: printed JSON differs")
+        views = r1.secs + r2.secs
+        if any(r1.seen + r2.seen):
+            raise AssertionError(f"eval_nvs {label}: binner overflow at "
+                                 f"cap {cap}")
+        for split, m in res.items():
+            with open(os.path.join(out, "eval", split, "metrics.json")) as f:
+                if json.load(f) != m:
+                    raise AssertionError(f"eval_nvs {label}: {split}'s "
+                                         "metrics.json differs")
+            if not (math.isfinite(m["psnr"]) and math.isfinite(m["ssim"])):
+                raise AssertionError(f"eval_nvs {label}: {m}")
+        if len(r_bake.secs) != (1 if "march" in needed else 0):
+            raise AssertionError(f"eval_nvs {label}: baked "
+                                 f"{len(r_bake.secs)} times")
+        w = cams[0].width / float(flags[flags.index("--eval_scale") + 1]
+                                  if "--eval_scale" in flags else 4.0)
+        log(f"[nvs] {label}: {total:.2f} s, {len(views)} views of "
+            f"{int(w)}x{int(w)} at cap {cap}: render "
+            f"{statistics.median(views) * 1e3:.2f} ms a view (median), "
+            f"render_set {sum(r_set.secs) / len(views) * 1e3:.2f} ms a view"
+            f" with metrics and PNGs"
+            + (f"; bake once at k 16 over {n63} surfels "
+               f"{r_bake.secs[0]:.3f} s" if r_bake.secs else "")
+            + f"; {json.dumps(res)}; launches {lc}; card: {card}")
+    log(f"[nvs] {time.time() - t_phase:.1f} s")
+
+    # ---- 29. relighting (composition), normal_eval, gui -------------------
+    t_phase = time.time()
+    example = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "example")
+    cfg_dir = os.path.join(tmp, "relight_config")
+    tf = write_relight_config(cfg_dir, ply, example)
+    entries, traject, _ = cli_rl.load_config(cfg_dir)
+    with torch.no_grad():
+        comp = cli_rl.compose(entries, device=dev)
+    tcams, _ = cli_rl.trajectory_cameras(traject, device=dev)
+    cap_rl = probe_views(comp, tcams)
+    # the composition: twice the PLY's surfels, each half the PLY under
+    # its transform (the identity too: a split child's log-scale of
+    # -1e10 becomes -inf there, as in the reference)
+    one = CK.load_model_ply(ply, device=dev)
+    n1 = int(one["alive"].sum())
+    if int(comp["alive"].sum()) != 2 * n1 or not bool(
+            comp["alive"][:2 * n1].all()):
+        raise AssertionError(f"composition: {int(comp['alive'].sum())} "
+                             f"alive for 2 x {n1}")
+    worst = 0.0
+    for half, m in enumerate((np.eye(4), tf)):
+        with torch.no_grad():
+            want = G.apply_transform(
+                {k: v[:n1] for k, v in one["params"].items()},
+                torch.as_tensor(m, dtype=torch.float32, device=dev))
+        for k in ("xyz", "scaling", "rotation"):
+            got = comp["params"][k][half * n1:(half + 1) * n1]
+            diff = torch.where(got == want[k], torch.zeros_like(got),
+                               (got - want[k]).abs())
+            worst = max(worst, float(diff.max()))
+    if not worst <= 1e-6:
+        raise AssertionError(f"composition: a half differs from "
+                             f"apply_transform by {worst}")
+    log(f"[relighting] composed {2 * n1} surfels (2 x {n1}; each half "
+        f"within {worst:.3g} of apply_transform); cap {cap_rl} over the "
+        f"{len(tcams)} trajectory views")
+    del comp, one, want
+
+    def relight(label, argv, frame_ids, captures):
+        out = argv[argv.index("--output") + 1]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        video = io.StringIO()
+        write = cli_rl.write_videos
+
+        def quiet_write(*a, **kw):
+            with contextlib.redirect_stdout(video):
+                return write(*a, **kw)
+        cli_rl.write_videos = quiet_write
+        try:
+            with Recorder(REL, "rebake_radiance_for_light", keep=0) as r_b, \
+                    Recorder(svgss, "render_svgss", keep=0,
+                             inspect=_overflowed) as r_f, \
+                    Recorder(cli_rl, "write_videos", keep=0) as r_v, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                cli_rl.main(argv)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+        finally:
+            cli_rl.write_videos = write
+        lc = kernels.launches()
+        check_launches(lc, f"relighting {label}",
+                       at_least=[(k, 1) for k in EVAL_KERNELS
+                                 + ("env_lookup_forward", "march")],
+                       none=("blend_backward", "env_lookup_backward"))
+        if len(r_b.secs) != 1 or len(r_f.secs) != len(frame_ids) or \
+                any(r_f.seen):
+            raise AssertionError(f"relighting {label}: {len(r_b.secs)} "
+                                 f"bakes, {len(r_f.secs)} frames, overflow "
+                                 f"{sum(r_f.seen)}")
+        for ct in captures:
+            for fid in frame_ids:
+                if not os.path.exists(os.path.join(out, ct,
+                                                   f"frame_{fid}.png")):
+                    raise AssertionError(f"relighting {label}: no {ct} "
+                                         f"frame {fid}")
+        said = video.getvalue().strip()
+        mp4 = [ct for ct in captures
+               if os.path.exists(os.path.join(out, f"{ct}.mp4"))]
+        if len(mp4) != len(captures) and "video export skipped" not in said:
+            raise AssertionError(f"relighting {label}: mp4s {mp4}, {said!r}")
+        log(f"[relighting] {label}: {total:.2f} s: bake {r_b.secs[0]:.3f} "
+            f"s, {len(r_f.secs)} frames {statistics.median(r_f.secs) * 1e3:.2f}"
+            f" ms a frame (median render), video {r_v.secs[0]:.3f} s "
+            f"({said!r}); launches {lc}; card: {card}")
+        return out
+
+    fids = [str(i) for i in range(TRAJ_FRAMES)]
+    captures = ("pbr_env", "normal", "roughness")
+    for path in hdrs:
+        name = os.path.splitext(os.path.basename(path))[0]
+        out = relight(f"composed, {name}, 800x800",
+                      ["--config", cfg_dir, "--hdr", path, "--output",
+                       os.path.join(tmp, f"relight_{name}"),
+                       "--capture_list", ",".join(captures),
+                       "--max_instances", str(cap_rl)], fids, captures)
+        first = out
+    orbit_cams = cli_rl.orbit_cameras(8, 3.0, 0.5, math.pi / 3, 512,
+                                      device=dev)
+    cap_orbit = probe_views(CK.load_model_ply(ply, device=dev), orbit_cams)
+    relight("the PLY alone, orbit, --rotate_light, 512x512",
+            ["--config", ply, "--hdr", hdrs[0], "--output",
+             os.path.join(tmp, "relight_orbit"), "--rotate_light",
+             "--frames", "8", "--resolution", "512", "--max_instances",
+             str(cap_orbit)], [str(i) for i in range(8)], ("pbr_env",))
+
+    normal_dir = os.path.join(first, "normal")
+    with contextlib.redirect_stdout(io.StringIO()):
+        mae = normal_eval.main(["--pred_dir", normal_dir, "--gt_dir",
+                                normal_dir])
+    if not 0.0 <= mae < MAE_SELF_TOL:
+        raise AssertionError(f"normal_eval of frames against themselves: "
+                             f"MAE {mae} degrees")
+    log(f"[relighting] normal_eval of the {TRAJ_FRAMES} normal frames "
+        f"against themselves: MAE {mae!r} degrees")
+
+    gui_out = os.path.join(tmp, "gui")
+    gcams = []
+    for i in range(4):
+        oc = gui.OrbitCamera(512, 512, device=dev)
+        oc.azimuth = 2 * math.pi * i / 4
+        gcams.append(oc.camera())
+    cap_gui = probe_views(CK.load_checkpoint(ck63, device=dev)[1]["state"],
+                          gcams)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Recorder(svgss, "render_svgss", keep=0, inspect=_overflowed) as r_g, \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        gui.main(["-c", ck63, "--headless", "--frames", "4", "--resolution",
+                  "512", "--max_instances", str(cap_gui), "--output",
+                  gui_out])
+        torch.cuda.synchronize()
+        gui_s = time.perf_counter() - t0
+    lc = kernels.launches()
+    check_launches(lc, "gui", at_least=[(k, 1) for k in EVAL_KERNELS
+                                        + ("env_lookup_forward",)])
+    if sorted(os.listdir(gui_out)) != [f"{i:04d}.png" for i in range(4)] \
+            or any(r_g.seen):
+        raise AssertionError(f"gui: {sorted(os.listdir(gui_out))}, overflow"
+                             f" {sum(r_g.seen)}")
+    log(f"[relighting] gui --headless: 4 frames at 512x512 in {gui_s:.2f} s "
+        f"({statistics.median(r_g.secs) * 1e3:.2f} ms a render); launches "
+        f"{lc}; card: {card}")
+    log(f"[relighting] {time.time() - t_phase:.1f} s")
+
+
+def run_render_sh(card, dev):
+    """Phase 30: render_sh_image on the inward bench scene at 800x800 (the
+    grid tracer, B8 on camera rays); returns B8's kernels-JSON rows (its
+    first chunk and the chunk whose rays hit most)."""
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.eval import render_sh as RS
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    from svgir_tpu_torch.ops import march_pallas as MP
+    from svgir_tpu_torch.ops import tracing as TR
+    from svgir_tpu_torch.utils import profiling
+
+    t_phase = time.time()
+    state, cam = bench_scene(dev, inward=True)
+    p = state["params"]
+    args = (p["xyz"], G.get_scaling(p), G.get_rotation(p),
+            G.get_opacity(p)[:, 0], G.get_shs(p))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(GT, "nearest_hits_grid") as r_grid, \
+            profiling.Timing("render_sh", verbose=False) as timing:
+        img = RS.render_sh_image(*args, cam, valid=state["alive"])
+        timing.result = img
+    render_s = timing.ms / 1e3
+    peak = profiling.device_memory_stats(dev)["allocated_bytes.all.peak"]
+    launches = kernels.launches()
+    check_launches(launches, "render_sh", at_least=[("march", 1)],
+                   none=("blend_forward", "env_lookup_forward"))
+    n_chunks = len(r_grid.secs)
+    hit = img["hit"].reshape(-1)
+    if not bool(torch.isfinite(img["render"]).all()) or \
+            not bool((hit >= 0).any()) or n_chunks != launches["march"]:
+        raise AssertionError(f"render_sh: finite "
+                             f"{bool(torch.isfinite(img['render']).all())}, "
+                             f"{int((hit >= 0).sum())} hits, {n_chunks} "
+                             f"chunks, {launches['march']} B8 launches")
+    # B8 against its plain version on the first 65,536-ray chunk (the top
+    # rows: long marches from outside the grid through empty cells) and on
+    # the chunk whose rays hit most
+    grid = r_grid.calls[0][0][1]
+    hkw = r_grid.calls[0][1]
+    mkw = dict(t_max=hkw["t_max"], k=hkw["k"],
+               n_steps=GT._concrete_n_steps(grid, hkw["t_max"]),
+               kmax=GT._run_kmax(grid))
+    full = max(range(n_chunks), key=lambda i: int(torch.isfinite(
+        r_grid.calls[i][2]["t"]).sum()))
+    chunks = {}
+    for label, i in (("first", 0), ("fullest", full)):
+        o, d = r_grid.calls[i][0][2:4]
+        with torch.no_grad():
+            kt, ki = MP.march(grid, o, d, **mkw)
+            pt, pi = MP.march_plain(grid, o, d, **mkw)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(pt)
+        bad = int(((ki != pi) | (torch.isfinite(kt) != fin)
+                   | (fin & (kt != pt))).sum())
+        both = fin & torch.isfinite(kt)
+        err = float((kt - pt)[both].abs().max()) if bool(both.any()) else 0.0
+        n_fin = int(fin.sum())
+        log(f"[render_sh] B8 vs plain on the {label} chunk (chunk {i}): "
+            f"{len(o)} camera rays (grid res {grid.res}, cap "
+            f"{grid.cell_cap}, n_steps {mkw['n_steps']}, t_max "
+            f"{mkw['t_max']:.4f}): {n_fin} finite slots, "
+            f"{int(fin[:, -1].sum())} full lists, {bad} slots differ, "
+            f"max|t err| {err:.3g}")
+        if bad > MARCH_SLOT_TOL * max(n_fin, 1) or \
+                (label == "fullest" and n_fin == 0):
+            raise AssertionError(f"render_sh: B8 differs from its plain "
+                                 f"version at {bad} of {n_fin} finite slots "
+                                 f"of the {label} chunk")
+        chunks[label] = (i, o, d, pt, err)
+    del r_grid
+    # the grid image against the brute tracer on the rays nearest the
+    # image centre (a 64 x 64 window)
+    h, w = cam.height, cam.width
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    dist = (ys - h / 2) ** 2 + (xs - w / 2) ** 2
+    sel = torch.argsort(dist.reshape(-1), stable=True)[:RENDER_SH_RAYS]
+    rays_d = cam.world_directions().reshape(3, -1).T[sel].contiguous()
+    rays_o = cam.camera_center[None].expand_as(rays_d).contiguous()
+    geo_b = TR.build_surfel_geometry(*args[:4], valid=state["alive"])
+    with torch.no_grad():
+        hb = TR.nearest_hits(geo_b, rays_o, rays_d, k=hkw["k"])
+        mb = TR.radiance_march(hb, torch.full((len(sel),), -1,
+                                              dtype=torch.int32, device=dev),
+                               args[4], args[0], rays_o, **RS._CAMERA_WINDOWS)
+    n_hit = int((mb["first_hit"] >= 0).sum())
+    same_hit = bool(torch.equal(mb["first_hit"], hit[sel]))
+    e_img = float((mb["radiance"].T - img["render"].reshape(3, -1)[:, sel])
+                  .abs().max())
+    log(f"[render_sh] grid against brute on the {RENDER_SH_RAYS} rays "
+        f"nearest the centre: {n_hit} hit, hits equal {same_hit}, render "
+        f"within {e_img:.3g}")
+    if not same_hit or e_img > TOL_RENDER_SH or n_hit == 0:
+        raise AssertionError(f"render_sh: grid vs brute hits equal "
+                             f"{same_hit}, render {e_img}, {n_hit} hits")
+    rows = []
+    for label, name in (("first", "march_camera_rays"),
+                        ("fullest", "march_camera_rays_hits")):
+        i, o, d, pt, err = chunks[label]
+        with torch.no_grad():
+            t8 = timings(lambda: MP.march(grid, o, d, **mkw),
+                         lambda: MP.march_plain(grid, o, d, **mkw), reps=10,
+                         plain_reps=1)
+        work = march_work(grid, o, d, pt, **{x: mkw[x] for x in
+                                             ("n_steps", "kmax", "k")})
+        bms, by = march_bound(work, len(o), mkw["k"])
+        log(f"[render_sh] B8 on the {label} chunk (chunk {i}): "
+            f"{fmt_times(t8)}, bound {bms:.4f} ms by {by}; its rays visit "
+            f"{work['all_blocks']} blocks, {work['blocks']} before their "
+            f"lists settle, {work['distinct_blocks']} distinct, in "
+            f"{work['steps']} steps; card: {card}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "svgir_tpu_torch/csrc/march.cu",
+                     "replaces": "svgir_tpu/ops/march_pallas.py:66",
+                     "launches": launches["march"], "max_abs_err": err,
+                     **t8, "bound_ms": bms, "bound_by": by})
+    log(f"[render_sh] 800x800, {int(state['alive'].sum())} inward surfels, "
+        f"{h * w} camera rays in {n_chunks} chunks: {render_s:.3f} s "
+        f"(first call, utils/profiling.Timing), peak memory "
+        f"{peak / 2**30:.3f} GiB (device_memory_stats), "
+        f"{float((hit >= 0).float().mean()):.4f} of the rays hit; "
+        f"{launches['march']} B8 launches an image; card: {card}")
+    log(f"[render_sh] {time.time() - t_phase:.1f} s")
+    return rows
+
+
+def run_standin(card, dev):
+    """Phase 31: the stand-in harness on the card at the configurations of
+    tests/test_e2e_parity.py; the pipeline one must meet its thresholds."""
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.eval.standin import run_standin_parity
+
+    t_phase = time.time()
+    for label, (kw, floor, jax_cpu) in STANDIN.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run_standin_parity(verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lc = kernels.launches()
+        check_launches(lc, f"stand-in {label}",
+                       at_least=[(k, 1) for k in STAGE2_KERNELS])
+        missed = [k for k, v in floor.items() if not out[k] > v]
+        log(f"[standin] {label} ({kw}): {secs:.1f} s; " + ", ".join(
+            f"{k} {out[k]:.4f} (threshold {floor[k]}"
+            + (f", JAX on the CPU {jax_cpu[k]}" if jax_cpu else "") + ")"
+            for k in floor) + f"; launches {lc}; card: {card}")
+        if missed and label == "pipeline":
+            raise AssertionError(f"stand-in {label} missed {missed}: {out}")
+        if missed:
+            log(f"[standin] {label} misses {missed} (a finding, not a "
+                "failure)")
+    log(f"[standin] {time.time() - t_phase:.1f} s")
 
 
 def log_blend_work(bnd, a, kw, label):
@@ -3960,6 +4495,12 @@ def main() -> int:
 
     # ---- 26-27. relighting under HDR lights, visibility ---------------------
     report.extend(run_relight(card, dev))
+
+    # ---- 30. render_sh: camera rays through the grid (B8) ----------------
+    report.extend(run_render_sh(card, dev))
+
+    # ---- 31. the stand-in harness -----------------------------------------
+    run_standin(card, dev)
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

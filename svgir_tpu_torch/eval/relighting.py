@@ -36,12 +36,17 @@ from svgir_tpu_torch.train.trainer import bake_radiance_compact, strip_meta
 K_HITS = 16    # the reference's relighting bake: bake_radiance's default
 
 
-def bake_hemisphere(params, alive, *, sample_num: int) -> Dict:
+def bake_hemisphere(params, alive, *, sample_num: int,
+                    azimuth: Optional[torch.Tensor] = None,
+                    use_grid: Optional[bool] = None) -> Dict:
     """Step 1: the hemisphere bake over the alive surfels, one pass at
     ``K_HITS`` as the reference bakes it (rays that use up the list keep
-    their truncated radiance: no re-bake at a larger k)."""
+    their truncated radiance: no re-bake at a larger k).  ``azimuth``
+    [n_alive, 1] turns the spirals (the reference's ``key``; unturned
+    without it); ``use_grid`` as ``bake_radiance_compact``'s."""
     return bake_radiance_compact(params, alive, sample_num=sample_num,
-                                 k_hits=K_HITS, max_k_hits=K_HITS)
+                                 azimuth=azimuth, k_hits=K_HITS,
+                                 max_k_hits=K_HITS, use_grid=use_grid)
 
 
 def calibrate_albedo_scale(pred_albedo, gt_albedo, mask) -> torch.Tensor:
@@ -59,13 +64,16 @@ def calibrate_albedo_scale(pred_albedo, gt_albedo, mask) -> torch.Tensor:
 @torch.no_grad()
 def rebake_radiance_for_light(params, alive, env_state: Dict, *,
                               sample_num: int,
+                              azimuth: Optional[torch.Tensor] = None,
                               bake: Optional[Dict] = None):
-    """Steps 1 and 2: the hemisphere bake (``bake_hemisphere``: unturned
-    fibonacci directions; ``bake`` from an earlier call on the same
-    geometry skips it), then the radiances [N, S, 3] as the one-bounce
-    irradiance under the light ``env_state``.  Returns (bake, radiances)."""
+    """Steps 1 and 2: the hemisphere bake (``bake_hemisphere``: fibonacci
+    directions, unturned unless ``azimuth`` is given; ``bake`` from an
+    earlier call on the same geometry skips it), then the radiances
+    [N, S, 3] as the one-bounce irradiance under the light ``env_state``.
+    Returns (bake, radiances)."""
     if bake is None:
-        bake = bake_hemisphere(params, alive, sample_num=sample_num)
+        bake = bake_hemisphere(params, alive, sample_num=sample_num,
+                               azimuth=azimuth)
     env_term = LT.env_light_direct(env_state, bake["incident_dirs"]) \
         * bake["incident_areas"]
     n = params["xyz"].shape[0]

@@ -24,7 +24,8 @@ import torch
 
 from svgir_tpu_torch.utils.sh import rgb_to_sh
 from svgir_tpu_torch.utils.transforms import (inverse_sigmoid, normal_to_rotation,
-                                              normalize, quat_to_rotmat)
+                                              normalize, quat_multiply,
+                                              quat_to_rotmat, rotmat_to_quat)
 
 VERTEX_NUM = 4  # gaussian_model.py:150
 
@@ -417,6 +418,66 @@ def grow_capacity(state, opt_state, new_cap: int):
              "stats": pad_all(state["stats"])},
             {**opt_state, "m": pad_all(opt_state["m"]),
              "v": pad_all(opt_state["v"])})
+
+
+# ---------------------------------------------------------------------------
+# scene composition and the neighbourhood regulariser
+# ---------------------------------------------------------------------------
+
+def apply_transform(params: Dict[str, torch.Tensor],
+                    transform: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Move the model by a 4x4 similarity ``transform`` (set_transform,
+    gaussian_model.py:169-193), as relighting.py's scene composition does:
+    each row norm of its 3x3 scales the surfels, the row-normalised 3x3
+    rotates the normals (when they are [N, 3]) and premultiplies the
+    rotations."""
+    params = dict(params)
+    scale = torch.linalg.norm(transform[:3, :3], dim=-1)      # per-row norm
+    params["scaling"] = torch.log(get_scaling(params) * scale)
+    ones = torch.ones_like(params["xyz"][:, :1])
+    homo = torch.cat([params["xyz"], ones], -1)
+    params["xyz"] = (homo @ transform.T)[:, :3]
+    rot = transform[:3, :3] / scale[:, None]
+    if params["normal"].shape[-1] == 3:
+        params["normal"] = params["normal"] @ rot.T
+    rot_q = rotmat_to_quat(rot[None])[0]
+    params["rotation"] = quat_multiply(rot_q[None], params["rotation"])
+    return params
+
+
+def concatenate_models(states) -> Dict[str, Any]:
+    """The alive rows of several models in one state (create_from_gaussians,
+    gaussian_model.py:599-611): capacity ``_round_capacity`` of their sum,
+    ``radiance_ratio`` from the first, fresh statistics."""
+    parts = [{k: v[st["alive"]] for k, v in st["params"].items() if v.dim()}
+             for st in states]
+    total = sum(p["xyz"].shape[0] for p in parts)
+    cap = _round_capacity(total)
+    dev = parts[0]["xyz"].device
+    params = {}
+    for k in parts[0]:
+        cat = torch.cat([p[k] for p in parts], 0)
+        params[k] = torch.cat([cat, cat.new_zeros((cap - total,)
+                                                  + tuple(cat.shape[1:]))])
+    if "radiance_ratio" in states[0]["params"]:
+        params["radiance_ratio"] = states[0]["params"]["radiance_ratio"]
+    alive = torch.arange(cap, device=dev) < total
+    return {"params": params, "alive": alive,
+            "stats": init_stats(cap, device=dev)}
+
+
+def knn_regularization_loss(params, alive=None, k: int = 8):
+    """get_knn_loss (gaussian_model.py:577-592): the variance of albedo and
+    of roughness over each point's k nearest neighbours, averaged; rows
+    from ``alive.sum()`` on are padding.  Returns (albedo, roughness)."""
+    from svgir_tpu_torch.ops.knn import knn
+
+    n_valid = None if alive is None else alive.sum()
+    _, idx = knn(params["xyz"], k=k, n_valid=n_valid)
+    albedo = get_base_color(params)[idx]                       # [N, k, 12]
+    rough = get_roughness(params)[idx]
+    return (albedo.var(dim=1, correction=0).mean(),
+            rough.var(dim=1, correction=0).mean())
 
 
 # ---------------------------------------------------------------------------

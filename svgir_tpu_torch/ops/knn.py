@@ -9,10 +9,14 @@ import torch
 
 
 @torch.no_grad()
-def knn(points: torch.Tensor, k: int = 8, *, chunk: int = 1024):
+def knn(points: torch.Tensor, k: int = 8, *, n_valid=None,
+        chunk: int = 1024):
     """Exact top-k nearest neighbours excluding self: (sq_dists [N, k],
-    idx [N, k])."""
+    idx [N, k]).  Rows from ``n_valid`` on (an int or a 0-d tensor) are
+    padding: no point takes them as a neighbour."""
     n = points.shape[0]
+    if n_valid is None:
+        n_valid = n
     sq = (points * points).sum(-1)
     d_out = points.new_empty(n, k)
     i_out = torch.empty(n, k, dtype=torch.int64, device=points.device)
@@ -21,7 +25,8 @@ def knn(points: torch.Tensor, k: int = 8, *, chunk: int = 1024):
         cp = points[a:a + chunk]
         d2 = sq[a:a + chunk, None] - 2.0 * cp @ points.T + sq[None]
         rows = torch.arange(a, a + cp.shape[0], device=points.device)
-        d2 = d2.masked_fill(cols[None] == rows[:, None], float("inf"))
+        d2 = d2.masked_fill((cols[None] == rows[:, None])
+                            | (cols[None] >= n_valid), float("inf"))
         d, i = torch.topk(d2, k, dim=1, largest=False)
         d_out[a:a + chunk], i_out[a:a + chunk] = d, i
     return d_out, i_out

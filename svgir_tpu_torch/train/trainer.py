@@ -483,7 +483,8 @@ MAX_K_HITS = 128        # the exhausted re-bake doubles k_hits up to this
 def bake_radiance_compact(params, alive, *, sample_num: int,
                           azimuth: Optional[torch.Tensor] = None,
                           k_hits: int = 16,
-                          max_k_hits: int = MAX_K_HITS) -> Dict:
+                          max_k_hits: int = MAX_K_HITS,
+                          use_grid: Optional[bool] = None) -> Dict:
     """Bake over the alive surfels only, then expand the buffers to
     capacity rows (dead rows: radiance 0, visibility 1, areas 2*pi, hit
     -1) with the hit indices mapped back to capacity rows.
@@ -492,7 +493,9 @@ def bake_radiance_compact(params, alive, *, sample_num: int,
     Rays that use up their K-hit list composite a truncated radiance, which
     the reference march never does: when more than 1% of the rays do, the
     bake warns and runs again with ``k_hits`` doubled, up to
-    ``max_k_hits`` (``max_k_hits=k_hits``: one pass)."""
+    ``max_k_hits`` (``max_k_hits=k_hits``: one pass).  ``use_grid``
+    chooses the tracer as ``bake_radiance``'s does (by default by the
+    alive count)."""
     cap = alive.shape[0]
     idx = torch.nonzero(alive)[:, 0]                       # compact -> cap
     n_alive = idx.shape[0]
@@ -502,7 +505,7 @@ def bake_radiance_compact(params, alive, *, sample_num: int,
         bake_c = RAD.bake_radiance(
             sub["xyz"], G.get_scaling(sub), G.get_rotation(sub),
             G.get_opacity(sub)[:, 0], G.get_shs(sub), sample_num=sample_num,
-            azimuth=azimuth, k_hits=k_hits)
+            azimuth=azimuth, k_hits=k_hits, use_grid=use_grid)
         frac = float(bake_c["exhausted_frac"])
         if frac <= EXHAUSTED_TOL or k_hits >= max_k_hits:
             if frac > EXHAUSTED_TOL:

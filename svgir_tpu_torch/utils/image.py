@@ -68,3 +68,10 @@ def normal2curv(normal: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     n_r = (p[1:-1, 2:] - n_c) * mm[1:-1, 2:]
     curv = ((n_u + n_l + n_b + n_r) * m).abs().sum(-1, keepdim=True)
     return curv.permute(2, 0, 1)
+
+
+def normal2rgb(normal: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Visualisation of normals [3, H, W] (y and z flipped, mapped to
+    [0, 1]) times mask (image_utils.py:56-59)."""
+    draw = torch.cat([normal[:1], -normal[1:2], -normal[2:]], 0)
+    return (draw * 0.5 + 0.5) * mask

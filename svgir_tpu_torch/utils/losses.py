@@ -138,6 +138,11 @@ def second_order_edge_aware_loss(data: torch.Tensor,
     return (g2 * torch.exp(-10 * g1)).sum(1).mean()
 
 
+def first_order_loss(data: torch.Tensor) -> torch.Tensor:
+    """Mean over pixels of the summed |dx|, |dy| of ``data`` [C, H, W]."""
+    return spatial_gradient(data, 1).abs().sum(1).mean()
+
+
 def tv_loss(x: torch.Tensor) -> torch.Tensor:
     """loss_utils.py:113-117 (mean squared neighbour difference)."""
     h_tv = ((x[..., 1:, :] - x[..., :-1, :]) ** 2).mean()

@@ -78,6 +78,10 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5
+
+
 def rotation_between_z(vec: torch.Tensor) -> torch.Tensor:
     """Rotation matrix aligning +z to ``vec`` [..., 3] -> [..., 3, 3]
     (``rotation_between_z``, utils/sh_utils.py:36-68), including the

@@ -44,6 +44,44 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return normalize(torch.stack([qw, qx, qy, qz], dim=-1))
 
 
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, w-first (general_utils.py:139+)."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def build_cov3d(scale: torch.Tensor, quat: torch.Tensor,
+                scale_modifier: float = 1.0,
+                surface: bool = True) -> torch.Tensor:
+    """World-space 3D covariance R S^2 R^T as its upper triangle
+    (xx, xy, xz, yy, yz, zz), svgss ``computeCov3D`` (forward.cu:186-226).
+    The reference's ``mod * surface ? 0 : scale.z`` zeroes the z scale
+    whenever ``surface`` is set, and so does this."""
+    R = quat_to_rotmat(quat)
+    s = scale * scale_modifier
+    if surface:
+        s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], -1)
+    M = R * s[..., None, :]                                  # R @ diag(s)
+    sigma = M @ M.transpose(-1, -2)
+    return torch.stack([sigma[..., 0, 0], sigma[..., 0, 1], sigma[..., 0, 2],
+                        sigma[..., 1, 1], sigma[..., 1, 2], sigma[..., 2, 2]],
+                       dim=-1)
+
+
+def cov3d_matrix(cov6: torch.Tensor) -> torch.Tensor:
+    """The symmetric [..., 3, 3] matrix of a ``build_cov3d`` 6-vector."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], -1),
+                        torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
+
+
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))
 

@@ -38,6 +38,20 @@ from svgir_tpu_torch.ops.preprocess import Preprocessed as TPrep
 
 from tests.scenes import default_camera, sphere_scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TILE = 16
 CASES = {
     # vertex channels, weight-sum cotangent present

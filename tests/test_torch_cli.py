@@ -37,12 +37,12 @@ from svgir_tpu_torch.train.cap_probe import snug_instance_cap as t_snug
 from tests.test_data import _write_blender_scene
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """These tests run many small tensor ops.  Under the parallel test run
     the CPU is oversubscribed, and an op split over torch's thread pool
     waits for descheduled threads each time (the resume test took 170 s
-    there against 4 s alone); one thread a test avoids that."""
+    there against 4 s alone); one thread a module avoids that."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

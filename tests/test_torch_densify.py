@@ -39,12 +39,12 @@ TOL = 1e-6
 CFG = RasterConfig(max_instances=1 << 14)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """These tests run many small tensor ops.  Under the parallel test run
     the CPU is oversubscribed, and an op split over torch's thread pool
     waits for descheduled threads each time (the resume test took 170 s
-    there against 4 s alone); one thread a test avoids that."""
+    there against 4 s alone); one thread a module avoids that."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

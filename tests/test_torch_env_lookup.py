@@ -31,6 +31,20 @@ from svgir_tpu_torch.ops import env_lookup_pallas as P
 
 from tests.torch_kernel_inputs import env_lookup_inputs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 M = 20_000
 SHAPES = [(16, 32, 3), (32, 64, 3)]
 

@@ -18,6 +18,20 @@ from svgir_tpu_torch.kernels import march as KM
 from svgir_tpu_torch.ops import binning_pallas, blend_pallas, blend_pallas_strip
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _rects(ns=256):
     g = torch.Generator().manual_seed(0)
     x0 = torch.randint(0, 3, (ns,), generator=g, dtype=torch.int32)

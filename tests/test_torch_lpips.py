@@ -19,6 +19,20 @@ from svgir_tpu_torch.eval.lpips import LPIPS, required_keys
 from test_lpips import random_weights
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def weights_file(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("lpips") / "lpips_vgg.npz")

@@ -28,6 +28,20 @@ from svgir_tpu_torch.cameras import look_at_camera as t_look_at
 from svgir_tpu_torch.config import RasterConfig as TCfg
 from svgir_tpu_torch.ops.preprocess import preprocess as t_preprocess
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 INT_FIELDS = ("valid", "radius", "rect_min", "rect_max", "tiles_touched")
 FLOAT_FIELDS = ("mean2d", "depth", "conic", "normal_view", "jinv", "lam",
                 "rgb", "view_cos")

@@ -47,6 +47,20 @@ from svgir_tpu_torch.ops.rasterizer import rasterize as t_rasterize
 from tests.scenes import sphere_scene
 from tests.test_tile_sizes import _scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = ("color", "normal", "opacity", "feature", "vfeature", "final_t")
 SCENES = {
     # tests/test_strip_layout.py's scene (4 features, CV = 2), chunk 32

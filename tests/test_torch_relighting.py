@@ -58,9 +58,9 @@ from test_lpips import random_weights
 N, CAP, S, RES = 60, 64, 8, 64
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """Many small tensor ops: one thread a test under the parallel run."""
+    """Many small tensor ops: one thread a module under the parallel run."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

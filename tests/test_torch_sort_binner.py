@@ -12,6 +12,7 @@ binners compare on one shared ``Preprocessed``, so compiling changes no
 comparison, and it is several times quicker than eager dispatch here.
 """
 
+import torch
 import functools
 import math
 
@@ -32,6 +33,20 @@ from svgir_tpu_torch.ops import binning as tbin
 from tests.test_binning_equivalence import big_splat_scene
 from tests.test_torch_binning import _prep as _prep_eager
 from tests.test_torch_binning import _to_torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 _prep = jax.jit(_prep_eager, static_argnums=tuple(range(6)))
 

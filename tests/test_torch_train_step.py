@@ -50,6 +50,20 @@ from svgir_tpu_torch.train import trainer as ttrainer
 
 from tests.scenes import default_camera, sphere_scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops.  Under the parallel test run the CPU is
+    oversubscribed, and an op split over torch's thread pool waits for
+    descheduled threads (a stage-2 loop took 42 s on 8 threads against 6 s
+    on one beside six busy processes); one thread for the module, its
+    module-scoped fixtures included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 W = H = 48
 ITER = 1000.0        # SH degree 1 active
 XYZ_LR = 1.6e-4

@@ -10,6 +10,7 @@ import dataclasses
 import math
 
 import numpy as np
+import pytest
 import torch
 
 from svgir_tpu_torch.cameras import look_at_camera
@@ -19,6 +20,18 @@ from svgir_tpu_torch.ops.rasterizer import rasterize
 from svgir_tpu_torch.render.stage1 import render_view_stage1
 from svgir_tpu_torch.train.trainer import train_stage1
 from svgir_tpu_torch.utils.transforms import normal_to_rotation, normalize
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """The loop's larger ops gain from a second thread, but under the
+    parallel test run a full pool waits for descheduled threads: beside six
+    busy processes this test took 298 s on 8 threads, 41 s on 2 and 62 s on
+    one (24 s on 8 alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def test_train_stage1_fits_synthetic_scene():

@@ -47,9 +47,9 @@ TOL = 1e-5
 CLEAR = 1e-3          # a compared ray's T lies this far from the 0.9 cut
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """Many small tensor ops: one thread a test under the parallel run."""
+    """Many small tensor ops: one thread a module under the parallel run."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
