@@ -278,8 +278,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  numbers: a finding, not a gate); launches of the stage-2
                  kernels.
 
+  The parallel paths (svgir_tpu_torch/parallel/, torch.distributed; the
+  card's machine has one card):
+  32. parallel   world size 1 on NCCL: make_dp_train_step on the bench
+                 scene against make_train_step (bit-equal where the single
+                 step is bit-stable between two runs, else held to
+                 TOL_PAR_MOMENT and lr); make_dp_svgss_train_step at
+                 S = 64 on the main path's bake (phase 12) against
+                 make_svgss_train_step; rasterize_sharded (all-gather, the
+                 exchange at the cap the partition needs, balanced rows)
+                 forward and backward against rasterize at strip 0 (B5/B6)
+                 with check_image's tolerances, the gradients within
+                 TOL_PAR_GRAD; each timed (steps in turns with the single
+                 step); the row imbalance, equal-area against balanced, and
+                 the bytes a rank receives in a forward (all-gather against
+                 exchange) at 2, 4 and 8 ranks; bake_radiance_sharded on
+                 the 50,000 inward surfels at S = 8 (brute, k 8) against
+                 the grid bake (B8) on the same draws, timed.  Launches of
+                 each path are counted and checked.
+  33. two ranks  two processes on the one card over gloo (NCCL refuses two
+                 ranks on one device): the DP stage-1 step over two views
+                 (the replicas bit-equal, against Adam on the mean of the
+                 two views' gradients) and rasterize_sharded over uneven
+                 balanced bands, both variants, forward and backward
+                 against phase 32's single-device render; ms of each path
+                 (two ranks sharing one card: correctness, not scaling) and
+                 the bytes a rank receives.
+
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
+Each kernel row of the JSON also carries ``parallel_launches``: its
+launches on each path of phases 32-33.
 """
 
 from __future__ import annotations
@@ -1535,8 +1564,9 @@ def small_bake_inputs(n=3000, seed=5):
 
 def run_bake(state, cam, opt, cfg, bg, card, dev, parents=(),
              profile_dir=None):
-    """Phases 12-16; returns B8's entries of the kernels JSON (the main
-    path's first chunk, and the inward bench bake's).  With
+    """Phases 12-16; returns B8's and B7's entries of the kernels JSON (the
+    main path's first chunk, and the inward bench bake's), and the
+    arguments of the S = 64 step on the main path's bake.  With
     ``profile_dir``, also writes the profile of one S = 64 step there;
     with ``parents``, times their B7 backward and B8 in turns."""
     import torch
@@ -1901,7 +1931,7 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, parents=(),
         times = parent_march(parents, g_, o_, d_, kw_, label, card)
         if times:
             e["parent"] = times
-    return b8 + b7_entries
+    return b8 + b7_entries, s3_args
 
 
 # ---------------------------------------------------------------------------
@@ -3794,6 +3824,651 @@ def run_standin(card, dev):
     log(f"[standin] {time.time() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the parallel paths (phases 32-33): view data parallelism, the sharded
+# rasterizer and the sharded bake on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_SAMPLES = 8         # the sharded bake's S: 400,000 rays, brute tracer
+PAR_WORLDS = (2, 4, 8)  # world sizes whose row imbalance and traffic count
+TOL_PAR_GRAD = 1e-3     # sharded gradients, of each one's largest (TOL_ROWS)
+TOL_PAR_MOMENT = 1e-5   # Adam moments, of each one's largest, where the
+                        # gradients' atomics reorder sums between two runs
+PAR_STEPS = 10          # timed repetitions of each parallel path
+PAR_KR = 12 + 9 + 5     # slab columns at the stage-1 widths (S = 5)
+PAR_CO = 9 + 5 + 3      # blend output channels at those widths
+GSHARD_KERNELS = ("binning_counts", "binning_instances",
+                  "blend_forward_tiles", "blend_backward_tiles")
+
+
+def par_inputs(state, cam):
+    """params -> the rasterizer's arguments at the stage-1 widths (shs;
+    features [geo normal, depth, depth^2]; the alive mask)."""
+    import torch
+
+    from svgir_tpu_torch.models import gaussians as G
+
+    def inputs(p):
+        xyz = p["xyz"]
+        hom = torch.cat([xyz, xyz.new_ones(xyz.shape[0], 1)], -1)
+        depth = (hom @ cam.world_view.T)[:, 2:3]
+        return ((xyz, G.get_scaling(p), G.get_rotation(p),
+                 G.get_opacity(p)[:, 0]),
+                dict(shs=G.get_shs(p), features=torch.cat(
+                    [G.get_geo_normal(p), depth, depth * depth], -1),
+                    mask=state["alive"]))
+    return inputs
+
+
+def par_target(cam, seed=11):
+    import torch
+    return torch.rand(3, cam.height, cam.width, device=cam.world_view.device,
+                      generator=torch.Generator(
+                          device=cam.world_view.device).manual_seed(seed))
+
+
+def par_loss(bufs, tgt):
+    """A loss of every blended channel but the depth (whose 1 / (1 - T)
+    amplifies the last bits where opacity is small)."""
+    return ((bufs.color - tgt).abs().mean() + 0.3 * bufs.normal.mean()
+            + 0.2 * bufs.feature.mean() + 0.05 * bufs.opacity.mean()
+            + 1e-6 * bufs.weights.sum())
+
+
+def par_render(state, cam, tgt, render):
+    """Forward and backward of ``render(args, kw)``: (buffers, gradients of
+    the raw parameters)."""
+    from svgir_tpu_torch.train.trainer import loss_grads
+
+    p = {k: v.detach().requires_grad_(True)
+         for k, v in state["params"].items()}
+    args, kw = par_inputs(state, cam)(p)
+    bufs = render(args, kw)
+    gp, _ = loss_grads(par_loss(bufs, tgt), p, [])
+    return bufs, {k: g.detach() for k, g in gp.items() if bool(
+        (g != 0).any())}
+
+
+def buffers_image(b):
+    """[channel sums..., logT, n_contrib] of a render's buffers, for
+    check_image (the depth is held apart)."""
+    import torch
+    return torch.cat([b.color, b.normal, b.feature, b.vfeature,
+                      torch.log(b.final_t)[None],
+                      b.n_contrib[None].to(torch.float32)]).detach()
+
+
+def hold_render(a, ga, b, gb, tag):
+    """A sharded render (a, its gradients ga) against a single-device one:
+    check_image's tolerances on the channel sums, logT and n_contrib; the
+    depth where the opacity passes 0.05 within TOL_S2_DEPTH relative; the
+    weight sums within TOL_IMG relative; each gradient within TOL_PAR_GRAD
+    of its largest magnitude.  Returns the worst errors."""
+    nch = 6 + a.feature.shape[0] + a.vfeature.shape[0]
+    e_img, e_lt, nc = check_image(buffers_image(a), buffers_image(b), nch,
+                                  tag)
+    m = b.opacity[0].detach() > 0.05
+    e_d = float(((a.depth[0] - b.depth[0]).abs()
+                 / b.depth[0].abs().clamp(min=1e-6))[m].detach().max())
+    if e_d > TOL_S2_DEPTH:
+        raise AssertionError(f"{tag}: depth differs by {e_d} (relative)")
+    e_w = max_err_rel(a.weights, b.weights)
+    if e_w > TOL_IMG:
+        raise AssertionError(f"{tag}: weights differ by {e_w} of the max")
+    if bool(a.overflow) or bool(b.overflow):
+        raise AssertionError(f"{tag}: binner or exchange overflow")
+    if sorted(ga) != sorted(gb):
+        raise AssertionError(f"{tag}: other groups got gradients")
+    e_g = max((max_err_rel(ga[k], gb[k]), k) for k in gb)
+    if e_g[0] > TOL_PAR_GRAD:
+        raise AssertionError(f"{tag}: d{e_g[1]} differs by {e_g[0]} of its "
+                             "largest magnitude")
+    return dict(img=e_img, logt=e_lt, n_contrib=nc, depth=e_d, weights=e_w,
+                grad=e_g[0])
+
+
+class deterministic:
+    """PyTorch's deterministic algorithms (index_add_ and the gathers'
+    backward without atomics), so that two runs of a step give the same
+    bits where no hand-written kernel adds with atomics; uninitialized
+    memory is left as it is."""
+
+    def __enter__(self):
+        import torch
+        import torch.utils.deterministic as det
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled(),
+                      det.fill_uninitialized_memory)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.utils.deterministic as det
+        torch.use_deterministic_algorithms(self.saved[0],
+                                           warn_only=self.saved[1])
+        det.fill_uninitialized_memory = self.saved[2]
+
+
+def stable_keys(a, b):
+    """The parameter groups whose values and moments two runs of one step
+    (a, b: (params, opt_state)) give bit for bit."""
+    import torch
+    return [k for k in a[0] if torch.equal(a[0][k], b[0][k])
+            and torch.equal(a[1]["m"][k], b[1]["m"][k])
+            and torch.equal(a[1]["v"][k], b[1]["v"][k])]
+
+
+def hold_step(a, b, tag, lrs, stable):
+    """Two Adam steps' (params, opt_state) on the same state: bit-equal in
+    the groups of ``stable``; elsewhere (a hand-written kernel's atomics
+    order the sums differently from run to run) the first moments within
+    TOL_PAR_MOMENT of their largest and the parameters equal where the
+    gradient passes 1e-6 of its largest (the first step moves them by
+    lr * sign(g)), within 2 lr elsewhere.  Returns the groups that differ
+    in any bit."""
+    import torch
+
+    (pa, oa), (pb, ob) = a, b
+    differ = [k for k in pb if not (torch.equal(pa[k], pb[k])
+                                    and torch.equal(oa["m"][k], ob["m"][k])
+                                    and torch.equal(oa["v"][k], ob["v"][k]))]
+    for k in differ:
+        if k in stable:
+            raise AssertionError(f"{tag}: {k} is not bit-equal, though the "
+                                 "single step gives it bit for bit")
+        mb = ob["m"][k]
+        if max_err_rel(oa["m"][k], mb) > TOL_PAR_MOMENT:
+            raise AssertionError(f"{tag}: the first moment of {k} differs")
+        big = mb.abs() >= 1e-6 * float(mb.abs().max())
+        d = (pa[k] - pb[k]).abs()
+        if bool((d[big] > 1e-6 * (1 + pb[k].abs()[big])).any()) or \
+                bool((d[~big] > 2 * lrs[k]).any()):
+            raise AssertionError(f"{tag}: the parameters of {k} differ")
+    return differ
+
+
+def exchange_need(state, cam, cfg, starts):
+    """The exchange cap a partition needs: the most splats one rank's shard
+    of the Gaussians sends one band."""
+    import torch
+
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.parallel import gshard
+
+    p = state["params"]
+    with torch.no_grad():
+        prep = gshard._project(p["xyz"], G.get_scaling(p), G.get_rotation(p),
+                               cam, cfg)
+    d = len(starts) - 1
+    valid = prep.valid & state["alive"]
+    n_l = valid.shape[0] // d
+    need = 0
+    for src in range(d):
+        sl = slice(src * n_l, (src + 1) * n_l)
+        for r in range(d):
+            ov = valid[sl] & (prep.rect_min[sl, 1] < starts[r + 1]) & \
+                (prep.rect_max[sl, 1] > starts[r])
+            need = max(need, int(ov.sum()))
+    return need
+
+
+def traffic(n, kr, tiles, co, tile, d, cap=None):
+    """Bytes a rank receives in one forward of rasterize_sharded over d
+    ranks: the all-gathers of slab, depth, validity, rects and radii
+    (or, with ``cap``, the two all-to-alls of [d, cap] slab and metadata
+    rows, the weight sums' way back and their gather), the weights'
+    all-reduce (a ring: twice (d-1)/d of it) and the gather of the
+    bands."""
+    part = (d - 1) / d
+    image = part * tiles * co * tile * tile * 4
+    if cap is None:
+        return part * n * (4 * kr + 4 + 1 + 16 + 4) + 2 * part * n * 4 \
+            + image
+    return part * d * cap * (4 * kr + 24 + 4) + part * n * (4 + 4) + image
+
+
+def run_parallel(card, dev, state, cam, opt, cfg, bg, s3_args):
+    """Phase 32: the parallel paths at world size 1 on NCCL, at full width;
+    returns {path: launches}."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.models import radiance as RAD
+    from svgir_tpu_torch.ops.rasterizer import rasterize
+    from svgir_tpu_torch.parallel import dp, gshard
+    from svgir_tpu_torch.train import optim, trainer
+
+    t_phase = time.time()
+    paths = {}
+    tmp = tempfile.mkdtemp()
+    dp.init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                        device=dev)
+    log(f"[parallel] world 1, backend {dist.get_backend()}, "
+        f"torch {torch.__version__}")
+    mesh = dp.make_mesh(device_type=torch.device(dev).type)
+
+    def launched(label, fn, at_least, none=()):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        lc = kernels.launches()
+        check_launches(lc, label, at_least=[(k, 1) for k in at_least],
+                       none=none)
+        paths[label] = lc
+        return out
+
+    # ---- DP stage 1: make_dp_train_step against make_train_step ---------
+    lrs = optim.group_lrs(opt, 1.0)
+    step1 = trainer.make_train_step(opt, cfg, bg, lrs=lrs, device=dev)
+    dstep1 = dp.make_dp_train_step(mesh, opt, cfg, bg, lrs=lrs, device=dev)
+    ost0 = optim.adam_init(state["params"])
+    batch = dp.stack_cameras([cam])
+    with deterministic():
+        s_a = step1(state, ost0, cam, 1.0, 1.6e-4)
+        s_b = step1(state, ost0, cam, 1.0, 1.6e-4)
+        d1 = launched("dp stage 1", lambda: dstep1(state, ost0, batch, 1.0,
+                                                   1.6e-4), STAGE1_KERNELS)
+    stable = stable_keys((s_a[0]["params"], s_a[1]),
+                         (s_b[0]["params"], s_b[1]))
+    lrs1 = {**lrs, "xyz": 1.6e-4}
+    diff = hold_step((d1[0]["params"], d1[1]), (s_a[0]["params"], s_a[1]),
+                     "dp stage 1", lrs1, stable)
+    for k in ("xyz_gradient_accum", "weights_accum", "denom",
+              "max_radii2d"):
+        if max_err_rel(d1[0]["stats"][k], s_a[0]["stats"][k]) > \
+                (0 if not diff else TOL_PAR_MOMENT):
+            raise AssertionError(f"dp stage 1: statistics {k} differ")
+    if abs(float(d1[2]["loss"]) - float(s_a[2]["loss"])) > 1e-6:
+        raise AssertionError("dp stage 1: loss differs")
+    t1 = [host_ms(lambda: step1(state, ost0, cam, 1.0, 1.6e-4),
+                  reps=PAR_STEPS),
+          host_ms(lambda: dstep1(state, ost0, batch, 1.0, 1.6e-4),
+                  reps=PAR_STEPS)]
+    t1 += [host_ms(lambda: dstep1(state, ost0, batch, 1.0, 1.6e-4),
+                   reps=PAR_STEPS),
+           host_ms(lambda: step1(state, ost0, cam, 1.0, 1.6e-4),
+                   reps=PAR_STEPS)]
+    log(f"[parallel] dp stage 1 at world 1 (deterministic algorithms): "
+        + ("bit-equal to make_train_step" if not diff else
+           f"{diff} differ in some bit, as two runs of make_train_step do;"
+           " within tolerances")
+        + f"; step {(t1[1] + t1[2]) / 2:.3f} ms against make_train_step's "
+        f"{(t1[0] + t1[3]) / 2:.3f} ms (in turns: "
+        + ", ".join(f"{x:.3f}" for x in t1) + "); "
+        f"launches {paths['dp stage 1']}; card: {card}")
+
+    # ---- DP stage 2 at S = 64, on the main path's bake ----------------
+    st3, _, env3, bake3, cam3, it3, xyz3, rad3 = s3_args
+    lrs2 = optim.group_lrs(opt, 1.0, use_pbr=True)
+    step2 = trainer.make_svgss_train_step(opt, cfg, bg, lrs=lrs2, device=dev)
+    dstep2 = dp.make_dp_svgss_train_step(mesh, opt, cfg, bg, lrs=lrs2,
+                                         device=dev)
+    ost3 = optim.adam_init(st3["params"])
+    args2 = (st3, ost3, env3, bake3)
+    batch3 = dp.stack_cameras([cam3])
+
+    def joint(r):
+        """(params, opt_state) of a stage-2 step, the env among them."""
+        return ({**r[0]["params"], "env": r[2]["params"]["env"]},
+                {x: {**r[1][x], "env": r[2]["opt"][x]["env"]}
+                 for x in ("m", "v")})
+    with deterministic():
+        s2a = joint(step2(*args2, cam3, it3, xyz3, rad3))
+        s2b = joint(step2(*args2, cam3, it3, xyz3, rad3))
+        d2 = joint(launched("dp stage 2", lambda: dstep2(
+            *args2, batch3, it3, xyz3, rad3), STAGE2_KERNELS))
+    lrs2s = {**lrs2, "xyz": xyz3, "radiances": rad3, "env": opt.env_lr}
+    diff2 = hold_step(d2, s2a, "dp stage 2", lrs2s, stable_keys(s2a, s2b))
+    t2 = [host_ms(lambda: step2(*args2, cam3, it3, xyz3, rad3), reps=5),
+          host_ms(lambda: dstep2(*args2, batch3, it3, xyz3, rad3), reps=5)]
+    log(f"[parallel] dp stage 2 at S = {BAKE_SAMPLES} on the main path's "
+        f"bake, world 1 (deterministic algorithms): "
+        + ("bit-equal to make_svgss_train_step" if not diff2 else
+           f"{diff2} differ in some bit, as two runs of "
+           "make_svgss_train_step do (B7's atomics); within tolerances")
+        + f"; step {t2[1]:.3f} ms against {t2[0]:.3f} ms; launches "
+        f"{paths['dp stage 2']}; card: {card}")
+
+    # ---- rasterize_sharded against rasterize at strip 0 (B5/B6) ---------
+    import dataclasses
+    cfg0 = dataclasses.replace(cfg, strip=0)
+    tgt = par_target(cam)
+    p = state["params"]
+    hist = gshard.row_instance_histogram(
+        p["xyz"], G.get_scaling(p), G.get_rotation(p), G.get_opacity(p)[:, 0],
+        cam, mask=state["alive"], cfg=cfg)
+    starts1 = gshard.balanced_row_starts(hist, 1)
+    need1 = exchange_need(state, cam, cfg, starts1)
+    def single_fn(a, kw):
+        return rasterize(*a, cam, bg, cfg=cfg0, **kw)
+
+    single = launched("rasterize strip 0",
+                      lambda: par_render(state, cam, tgt, single_fn),
+                      GSHARD_KERNELS)
+
+    def sharded(cap, starts):
+        return lambda a, kw: gshard.rasterize_sharded(
+            mesh, "data", *a, cam, bg, cfg=cfg, exchange_cap=cap,
+            row_starts=starts, **kw)
+
+    variants = {"all-gather": (None, None), "exchange": (need1, None),
+                "balanced": (None, starts1)}
+    errs = {}
+    for name, (cap, starts) in variants.items():
+        out = launched(f"rasterize_sharded {name}",
+                       lambda: par_render(state, cam, tgt,
+                                          sharded(cap, starts)),
+                       GSHARD_KERNELS, none=("blend_forward",
+                                             "blend_backward"))
+        errs[name] = hold_render(*out, *single, f"rasterize_sharded {name}")
+    torch.save({"bufs": {f: getattr(single[0], f).detach().cpu() for f in
+                         single[0]._fields},
+                "grads": {k: v.cpu() for k, v in single[1].items()}},
+               os.path.join(tmp, "single.pt"))
+
+    def fwd(render):
+        with torch.no_grad():
+            render(*par_inputs(state, cam)(state["params"]))
+
+    def fwd_bwd(render):
+        par_render(state, cam, tgt, render)
+
+    times = {}
+    for name, fn in (("rasterize", single_fn),
+                     ("all-gather", sharded(None, None)),
+                     ("exchange", sharded(need1, None))):
+        times[name] = (host_ms(lambda: fwd(fn), reps=PAR_STEPS),
+                       host_ms(lambda: fwd_bwd(fn), reps=PAR_STEPS))
+    log(f"[parallel] rasterize_sharded at world 1 against rasterize at "
+        f"strip 0 (exchange cap {need1}): " + "; ".join(
+            f"{k}: image {v['img']:.3g}, logT {v['logt']:.3g}, n_contrib "
+            f"flips {v['n_contrib']}, depth {v['depth']:.3g}, weights "
+            f"{v['weights']:.3g}, gradients {v['grad']:.3g} of max"
+            for k, v in errs.items()))
+    log(f"[parallel] forward / forward + backward ms: " + "; ".join(
+        f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
+        + f"; card: {card}")
+
+    # row imbalance and traffic of wider worlds on this scene
+    n = p["xyz"].shape[0]
+    tiles = (-(-cam.width // cfg.tile)) * (-(-cam.height // cfg.tile))
+    for d in PAR_WORLDS:
+        grid = -(-cam.height // cfg.tile)
+        even = tuple(range(0, -(-grid // d) * d + 1, -(-grid // d)))
+        bal = gshard.balanced_row_starts(hist, d)
+        st_e = gshard.instance_stats(
+            p["xyz"], G.get_scaling(p), G.get_rotation(p),
+            G.get_opacity(p)[:, 0], cam, even, mask=state["alive"], cfg=cfg)
+        st_b = gshard.instance_stats(
+            p["xyz"], G.get_scaling(p), G.get_rotation(p),
+            G.get_opacity(p)[:, 0], cam, bal, mask=state["alive"], cfg=cfg)
+        need = exchange_need(state, cam, cfg, bal)
+        log(f"[parallel] {d} ranks on the bench scene: row imbalance "
+            f"(max/mean instances) equal-area {st_e['imbalance']:.4f} "
+            f"{even}, balanced {st_b['imbalance']:.4f} {bal}; bytes a rank "
+            f"receives a forward: all-gather "
+            f"{traffic(n, PAR_KR, tiles, PAR_CO, cfg.tile, d):.0f}, exchange"
+            f" at cap {need} "
+            f"{traffic(n, PAR_KR, tiles, PAR_CO, cfg.tile, d, need):.0f}")
+
+    # ---- the sharded bake (brute) against the grid bake (B8) ------------
+    in_state, _ = bench_scene(dev, inward=True)
+    q = in_state["params"]
+    geo = (q["xyz"], G.get_scaling(q), G.get_rotation(q),
+           G.get_opacity(q)[:, 0], G.get_shs(q))
+    az = torch.rand(q["xyz"].shape[0], 1, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sb = dp.bake_radiance_sharded(mesh, "data", *geo, sample_num=PAR_SAMPLES,
+                                  azimuth=az)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    paths["bake_radiance_sharded"] = kernels.launches()
+    t0 = time.perf_counter()
+    gb = launched("bake_radiance grid", lambda: RAD.bake_radiance(
+        *geo, sample_num=PAR_SAMPLES, azimuth=az, k_hits=8, use_grid=True),
+        ("march",))
+    grid_s = time.perf_counter() - t0
+    off = sb["hit_idx"] != gb["hit_idx"]
+    for key in ("radiance", "visibility", "uv"):
+        off |= ((sb[key] - gb[key]).abs() > BAKE_VAL_TOL).any(-1)
+    n_rays = off.numel()
+    hit = float((sb["hit_idx"] >= 0).float().mean())
+    log(f"[parallel] bake_radiance_sharded, {q['xyz'].shape[0]} inward "
+        f"surfels x S={PAR_SAMPLES} ({n_rays} rays, brute, k 8): {brute_s:.3f}"
+        f" s; the grid bake on the same draws {grid_s:.3f} s; rays with a "
+        f"first hit {hit:.4f}; rays that differ {int(off.sum())}; card: "
+        f"{card}")
+    if hit == 0.0 or int(off.sum()) > BAKE_HIT_TOL * n_rays:
+        raise AssertionError("sharded bake: no hits, or it differs from the "
+                             "grid bake")
+    dist.destroy_process_group()
+    log(f"[parallel] {time.time() - t_phase:.1f} s")
+    return paths, tmp
+
+
+PAR_RANKS = 2           # phase 33: ranks sharing the one card, on gloo
+
+
+def second_camera(cam, dev):
+    """A second view of the bench scene, with its own random target."""
+    import dataclasses
+
+    import torch
+
+    from svgir_tpu_torch.cameras import look_at_camera
+
+    c = look_at_camera(eye=[-0.9, 0.3, -2.5], target=[0, 0, 0],
+                       up=[0, -1, 0], fovx=math.pi / 3, fovy=math.pi / 3,
+                       width=cam.width, height=cam.height, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    return dataclasses.replace(
+        c, image=torch.rand(3, cam.height, cam.width, device=dev,
+                            generator=g),
+        image_mask=torch.ones(1, cam.height, cam.width, device=dev))
+
+
+def par_rank(rank, tmp, cap, starts, exchange_cap, dev):
+    """Phase 33's rank: the DP stage-1 step over two cameras and the
+    sharded render over two bands, on gloo over CUDA tensors; writes its
+    results to ``tmp/rank<r>.pt``."""
+    import os
+
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+    from svgir_tpu_torch.parallel import dp, gshard
+    from svgir_tpu_torch.train import optim
+
+    dp.init_distributed(f"file://{os.path.join(tmp, 'store')}", PAR_RANKS,
+                        rank, device=dev, backend="gloo")
+    state, cam = bench_scene(dev)
+    cams = [cam, second_camera(cam, dev)]
+    opt = OptimizationConfig()
+    cfg = RasterConfig(max_instances=cap)
+    bg = torch.zeros(3, device=dev)
+    mesh = dp.make_mesh(device_type=torch.device(dev).type)
+    out = {"launches": {}, "ms": {}}
+
+    def launched(label, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        out["launches"][label] = kernels.launches()
+        return r
+
+    step = dp.make_dp_train_step(mesh, opt, cfg, bg,
+                                 lrs=optim.group_lrs(opt, 1.0), device=dev)
+    ost0 = optim.adam_init(state["params"])
+    batch = dp.stack_cameras(cams)
+    with deterministic():
+        new, ost, metrics = launched("dp stage 1", lambda: step(
+            state, ost0, batch, 1.0, 1.6e-4))
+    out["ms"]["dp stage 1"] = host_ms(
+        lambda: step(state, ost0, batch, 1.0, 1.6e-4), reps=PAR_STEPS)
+    out["dp"] = {"params": new["params"], "m": ost["m"], "v": ost["v"],
+                 "stats": new["stats"], "loss": metrics["loss"]}
+    tgt = par_target(cam)
+    for name, c in (("all-gather", None), ("exchange", exchange_cap)):
+        def render(a, kw, c=c):
+            return gshard.rasterize_sharded(
+                mesh, "data", *a, cam, bg, cfg=cfg, exchange_cap=c,
+                row_starts=starts, **kw)
+        bufs, grads = launched(
+            name, lambda: par_render(state, cam, tgt, render))
+        out[name] = {"bufs": {f: getattr(bufs, f).detach() for f in
+                              bufs._fields}, "grads": grads}
+
+        def fwd(render=render):
+            with torch.no_grad():
+                render(*par_inputs(state, cam)(state["params"]))
+        out["ms"][name] = (
+            host_ms(fwd, reps=PAR_STEPS),
+            host_ms(lambda: par_render(state, cam, tgt, render),
+                    reps=PAR_STEPS))
+    out = _to_cpu(out)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _to_cpu(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def run_two_ranks(card, dev, cfg, tmp, paths):
+    """Phase 33: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device): the DP stage-1 step against the Adam step on the
+    mean of the two views' gradients, and the sharded render over uneven
+    balanced bands against phase 32's single-device render."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.parallel import gshard
+    from svgir_tpu_torch.render.stage1 import render_stage1
+    from svgir_tpu_torch.train import optim
+    from svgir_tpu_torch.train.trainer import loss_grads
+
+    t_phase = time.time()
+    state, cam = bench_scene(dev)
+    p = state["params"]
+    hist = gshard.row_instance_histogram(
+        p["xyz"], G.get_scaling(p), G.get_rotation(p), G.get_opacity(p)[:, 0],
+        cam, mask=state["alive"], cfg=cfg)
+    starts = gshard.balanced_row_starts(hist, PAR_RANKS)
+    imbalance = gshard.instance_stats(
+        p["xyz"], G.get_scaling(p), G.get_rotation(p), G.get_opacity(p)[:, 0],
+        cam, starts, mask=state["alive"], cfg=cfg)["imbalance"]
+    need = exchange_need(state, cam, cfg, starts)
+    cap = 2 * cfg.max_instances     # the band's share of the snug cap,
+    # padded per tile, may pass half of it
+    torch.cuda.empty_cache()        # the ranks allocate on the same card
+    mp.start_processes(par_rank, args=(tmp, cap, starts, need,
+                                       "cuda:0" if dev == "cuda" else dev),
+                       nprocs=PAR_RANKS, start_method="spawn")
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+            for r in range(PAR_RANKS)]
+    # the ranks' replicas are bit-equal
+    for r in range(1, PAR_RANKS):
+        for group in ("params", "m", "v", "stats"):
+            for k, v in outs[0]["dp"][group].items():
+                if not torch.equal(v, outs[r]["dp"][group][k]):
+                    raise AssertionError(f"two ranks: rank {r}'s {group} {k}"
+                                         " differs from rank 0's")
+    # the DP step against Adam on the mean of the two views' gradients
+    from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+    opt = OptimizationConfig()
+    rcfg = RasterConfig(max_instances=cap)
+    cams = [cam, second_camera(cam, dev)]
+    bg = torch.zeros(3, device=dev)
+    grads, losses = [], []
+    with deterministic():
+        for c in cams:
+            prm = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            off = torch.zeros(p["xyz"].shape[0], 2, device=dev,
+                              requires_grad=True)
+            res = render_stage1(c, prm, bg, opt=opt, iteration=1.0,
+                                is_training=True, alive=state["alive"],
+                                mean2d_offset=off, cfg=rcfg)
+            grads.append(loss_grads(res["loss"], prm, [off])[0])
+            losses.append(float(res["loss"]))
+    mean = {k: (grads[0][k] + grads[1][k]) / 2 for k in grads[0]}
+    lrs = {**optim.group_lrs(opt, 1.0), "xyz": 1.6e-4}
+    ref = optim.adam_step({k: v.detach() for k, v in p.items()}, mean,
+                          optim.adam_init(p), lrs)
+    got = outs[0]["dp"]
+    # a sum of two is the same either way round: bit-equal throughout
+    hold_step(
+        (got["params"], {"m": got["m"], "v": got["v"]}),
+        ({k: v.cpu() for k, v in ref[0].items()},
+         {x: {k: v.cpu() for k, v in ref[1][x].items()} for x in ("m", "v")}),
+        "two ranks, dp stage 1", lrs, stable=list(ref[0]))
+    if abs(float(got["loss"]) - sum(losses) / 2) > 1e-5:
+        raise AssertionError("two ranks: dp loss is not the views' mean")
+    # the sharded render against phase 32's single-device one
+    single = torch.load(os.path.join(tmp, "single.pt"), weights_only=True)
+    from svgir_tpu_torch.ops.rasterizer import RenderBuffers
+    sb = RenderBuffers(**single["bufs"])
+    errs = {}
+    for name in ("all-gather", "exchange"):
+        o = outs[0][name]
+        errs[name] = hold_render(RenderBuffers(**o["bufs"]), o["grads"], sb,
+                                 single["grads"], f"two ranks, {name}")
+        for r in range(1, PAR_RANKS):
+            if not torch.equal(outs[r][name]["bufs"]["color"],
+                               o["bufs"]["color"]):
+                raise AssertionError(f"two ranks: {name} images differ "
+                                     "between the ranks")
+    for r, o in enumerate(outs):
+        for label, lc in o["launches"].items():
+            paths[f"two ranks, rank {r}, {label}"] = lc
+            at_least = STAGE1_KERNELS if label == "dp stage 1" else \
+                GSHARD_KERNELS
+            check_launches(lc, f"two ranks, rank {r}, {label}",
+                           at_least=[(k, 1) for k in at_least])
+    ms = outs[0]["ms"]
+    n = state["params"]["xyz"].shape[0]
+    tiles = (-(-cam.width // cfg.tile)) * (-(-cam.height // cfg.tile))
+    log(f"[two ranks] {PAR_RANKS} ranks on one card over gloo (CUDA "
+        f"tensors; no collective went through the host), bands {starts} "
+        f"(row imbalance {imbalance:.4f}), exchange cap {need}: dp stage 1 "
+        f"replicas bit-equal, and bit-equal to Adam on the mean of the two "
+        f"views' gradients (deterministic algorithms); " + "; ".join(
+            f"{k}: image {v['img']:.3g}, logT {v['logt']:.3g}, n_contrib "
+            f"flips {v['n_contrib']}, depth {v['depth']:.3g}, weights "
+            f"{v['weights']:.3g}, gradients {v['grad']:.3g} of max"
+            for k, v in errs.items()))
+    log(f"[two ranks] ms (two ranks sharing one card: correctness, not "
+        f"scaling): dp stage 1 step {ms['dp stage 1']:.3f}; "
+        + "; ".join(f"{k} forward {ms[k][0]:.3f}, forward + backward "
+                    f"{ms[k][1]:.3f}" for k in ("all-gather", "exchange"))
+        + f"; bytes a rank receives a forward: all-gather "
+        f"{traffic(n, PAR_KR, tiles, PAR_CO, cfg.tile, PAR_RANKS):.0f}, "
+        f"exchange "
+        f"{traffic(n, PAR_KR, tiles, PAR_CO, cfg.tile, PAR_RANKS, need):.0f}"
+        "; "
+        f"launches {outs[0]['launches']}; card: {card}")
+    log(f"[two ranks] {time.time() - t_phase:.1f} s")
+
+
 def log_blend_work(bnd, a, kw, label):
     """Logs what a B3 call had to do: its instances, the real rows of the
     chunks its tiles processed, the (pixel, row) pairs tested, passing the
@@ -4480,8 +5155,9 @@ def main() -> int:
     # ---- 12-16. the radiance bake ------------------------------------------
     out_dir = sys.argv[sys.argv.index("--profile") + 1] \
         if "--profile" in sys.argv[1:-1] else None
-    report.extend(run_bake(state, cam, opt, cfg, bg, card, dev, parents,
-                           out_dir))
+    bake_rows, s3_args = run_bake(state, cam, opt, cfg, bg, card, dev,
+                                  parents, out_dir)
+    report.extend(bake_rows)
 
     # ---- 17-23. the tile-major paths (strip 0, sort binner) and B9 -------
     report.extend(run_tiles(
@@ -4501,6 +5177,21 @@ def main() -> int:
 
     # ---- 31. the stand-in harness -----------------------------------------
     run_standin(card, dev)
+
+    # ---- 32-33. the parallel paths: world 1 on NCCL, two ranks on gloo ----
+    import shutil
+    paths, par_tmp = run_parallel(card, dev, state, cam, opt, cfg, bg,
+                                  s3_args)
+    try:
+        run_two_ranks(card, dev, cfg, par_tmp, paths)
+    finally:
+        shutil.rmtree(par_tmp, ignore_errors=True)
+    for entry in report:
+        key = max((k for k in kernels.KERNEL_NAMES
+                   if entry["name"].startswith(k)), key=len, default=None)
+        if key is not None:
+            entry["parallel_launches"] = {path: lc[key]
+                                          for path, lc in paths.items()}
 
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)

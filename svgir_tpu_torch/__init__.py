@@ -5,7 +5,10 @@ trainer with densification, the radiance bake and the stage-2
 env-map lookup, grid-march and column-copy kernels written in CUDA C++ for
 Hopper (``csrc/``, bound through ``kernels/``); and the training CLI
 (``python -m svgir_tpu_torch.cli.train``) with its scene readers,
-checkpoints, camera staging and instance-cap probe.
+checkpoints, camera staging and instance-cap probe; the evaluation and
+viewing commands (``cli/``); and the parallel paths on
+``torch.distributed`` (``parallel/``: view data parallelism, the sharded
+bake and the Gaussian- and tile-row-sharded rasterizer).
 
 The package mirrors the layout of ``svgir_tpu`` and is held to it by the
 ``tests/test_torch_*.py`` parity tests.  It imports neither JAX,

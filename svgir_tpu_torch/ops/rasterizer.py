@@ -186,6 +186,17 @@ def _pack_slab(prep: Preprocessed, opacity: torch.Tensor,
     return torch.cat([geom, plain, vcols], -1), ca, cv
 
 
+def _clamp_runs(padded, m: int, chunk: int):
+    """The binner's tile runs, cut at the instance buffer's end: on
+    overflow they reach past it, and the blend must read no row past M
+    (the dropped instances are lost for this frame, as the overflow flag
+    reports)."""
+    tile_start = torch.clamp(padded.tile_start, max=m)
+    tile_count = torch.minimum(padded.tile_count,
+                               (m - tile_start) // chunk * chunk)
+    return tile_start, tile_count
+
+
 def rasterize(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -244,13 +255,8 @@ def rasterize(
     slab_g, ca, cv = _pack_slab(prep, opacity, features, vfeatures, cfg)
     kw = dict(ca=ca, cv=cv, grid_x=grid_x, grid_y=grid_y, tile=tile,
               chunk=cfg.chunk)
-    # on overflow the binner's runs reach past the instance buffer; cut
-    # them at its end so the blend reads no row past M (the dropped
-    # instances are lost for this frame, as the overflow flag reports)
-    m = cfg.max_instances
-    tile_start = torch.clamp(padded.tile_start, max=m)
-    tile_count = torch.minimum(padded.tile_count,
-                               (m - tile_start) // cfg.chunk * cfg.chunk)
+    tile_start, tile_count = _clamp_runs(padded, cfg.max_instances,
+                                         cfg.chunk)
     strip = cfg.strip if padded.order is not None else 0
     # one extra all-zero row: padding slots (gid -1) gather it and their
     # gradients scatter back into it

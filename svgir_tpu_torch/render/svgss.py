@@ -39,6 +39,7 @@ from svgir_tpu_torch.utils.transforms import normalize
 def render_view_svgss(camera, params, bake: Dict, env_params,
                       bg: torch.Tensor, *, is_training: bool = True,
                       alive: Optional[torch.Tensor] = None,
+                      mean2d_offset: Optional[torch.Tensor] = None,
                       sh_degree: int = 3,
                       base_color_scale: Optional[torch.Tensor] = None,
                       env_fn=None, env_qxy_fn_override=None,
@@ -49,7 +50,8 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     ``env_params`` unless ``env_fn(dirs)`` replaces it; then the bake's
     ``incident_qxy`` go to ``env_qxy_fn_override(qxy)`` where one is given,
     else the directions to ``env_fn``.  ``base_color_scale`` [3] rescales
-    the base colour per channel."""
+    the base colour per channel; ``mean2d_offset`` ([N, 2] zeros) lets
+    callers take gradients with respect to screen-space positions."""
     n = params["xyz"].shape[0]
     xyz = params["xyz"]
     opacity = G.get_opacity(params)[:, 0]
@@ -113,8 +115,9 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     bufs = rasterize(xyz, G.get_scaling(params), G.get_rotation(params),
                      opacity, camera, bg, shs=G.get_shs(params),
                      sh_degree=sh_degree, features=features,
-                     vfeatures=vfeatures, cfg=cfg, mask=alive,
-                     weights_grad=False, need_weights=False)
+                     vfeatures=vfeatures, mean2d_offset=mean2d_offset,
+                     cfg=cfg, mask=alive, weights_grad=False,
+                     need_weights=False)
 
     opac = bufs.opacity
     feat = bufs.feature / torch.clamp(opac, min=1e-5)
@@ -263,16 +266,20 @@ def calculate_loss_svgss(camera, params, bake, results,
 
 def render_svgss(camera, params, bg, *, bake=None, env_params=None,
                  opt: OptimizationConfig = None, iteration=0,
-                 is_training=False, alive=None, sh_degree=3,
-                 base_color_scale=None, env_fn=None, env_qxy_fn=None,
-                 cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
+                 is_training=False, alive=None, mean2d_offset=None,
+                 sh_degree=3, base_color_scale=None, env_fn=None,
+                 env_qxy_fn=None, cfg: RasterConfig = RasterConfig(),
+                 **_) -> Dict[str, Any]:
     """svgss.py:406-424: render, loss, then rotate the normals to world
-    space after the loss (the losses see view space).  ``env_fn``,
-    ``env_qxy_fn`` and ``base_color_scale`` as ``render_view_svgss``'s."""
+    space after the loss (the losses see view space).  ``mean2d_offset``,
+    ``env_fn``, ``env_qxy_fn`` and ``base_color_scale`` as
+    ``render_view_svgss``'s; other keywords (a stage-1 render's ``mono``)
+    are ignored."""
     results = render_view_svgss(
         camera, params, bake, env_params, bg, is_training=is_training,
-        alive=alive, sh_degree=sh_degree, base_color_scale=base_color_scale,
-        env_fn=env_fn, env_qxy_fn_override=env_qxy_fn, cfg=cfg)
+        alive=alive, mean2d_offset=mean2d_offset, sh_degree=sh_degree,
+        base_color_scale=base_color_scale, env_fn=env_fn,
+        env_qxy_fn_override=env_qxy_fn, cfg=cfg)
     if is_training:
         loss, tb = calculate_loss_svgss(
             camera, params, bake, results, opt, env_params, iteration,

@@ -44,6 +44,18 @@ def strip_meta(camera):
     return dataclasses.replace(camera, uid=0, image_name="")
 
 
+def loss_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor],
+               extra: List[torch.Tensor]):
+    """The gradients of ``loss`` with respect to every parameter and to each
+    tensor of ``extra``: (dict, list).  Tensors the loss does not reach get
+    zero gradients, as under jax.grad, so their Adam moments decay the same
+    way."""
+    wrt = list(params.values()) + extra
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        wrt, torch.autograd.grad(loss, wrt, allow_unused=True))]
+    return dict(zip(params, grads)), grads[len(params):]
+
+
 def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
                     sh_degree: int = 3,
                     lrs: Optional[Dict[str, float]] = None,
@@ -61,7 +73,6 @@ def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
     def step(state, opt_state, camera, iteration, xyz_lr):
         alive, stats = state["alive"], state["stats"]
         cap = alive.shape[0]
-        names = list(state["params"])
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state["params"].items()}
         off = torch.zeros(cap, 2, device=alive.device, requires_grad=True)
@@ -70,14 +81,7 @@ def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
                             is_training=True, alive=alive, mean2d_offset=off,
                             sh_degree=sh_degree, mono=camera.mono,
                             need_weights=track_stats, cfg=raster_cfg)
-        grads = torch.autograd.grad(
-            res["loss"], [params[k] for k in names] + [off],
-            allow_unused=True)
-        # parameters the loss does not reach get zero gradients, as under
-        # jax.grad, so their Adam moments decay the same way
-        gp = {k: torch.zeros_like(params[k]) if g is None else g
-              for k, g in zip(names, grads[:-1])}
-        goff = grads[-1] if grads[-1] is not None else torch.zeros_like(off)
+        gp, (goff,) = loss_grads(res["loss"], params, [off])
 
         step_lrs = {**(lrs or {}), "xyz": xyz_lr}
         new_params, opt_state = optim.adam_step(
@@ -332,7 +336,6 @@ def make_svgss_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig,
     def step(state, opt_state, env_state, bake, camera, iteration, xyz_lr,
              radiance_lr):
         alive = state["alive"]
-        names = list(state["params"])
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state["params"].items()}
         env = env_state["params"]["env"].detach().requires_grad_(True)
@@ -341,14 +344,7 @@ def make_svgss_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig,
                            env_params={"env": env}, opt=opt,
                            iteration=iteration, is_training=True,
                            alive=alive, sh_degree=sh_degree, cfg=raster_cfg)
-        grads = torch.autograd.grad(
-            res["loss"], [params[k] for k in names] + [env],
-            allow_unused=True)
-        # parameters the loss does not reach get zero gradients, as under
-        # jax.grad, so their Adam moments decay the same way
-        gp = {k: torch.zeros_like(params[k]) if g is None else g
-              for k, g in zip(names, grads[:-1])}
-        genv = torch.zeros_like(env) if grads[-1] is None else grads[-1]
+        gp, (genv,) = loss_grads(res["loss"], params, [env])
 
         step_lrs = {**(lrs or {}), "xyz": xyz_lr, "radiances": radiance_lr}
         new_params, opt_state = optim.adam_step(
