@@ -11,6 +11,11 @@
                                           # (its own wrappers, built there)
                                           # in turns beside this tree's;
                                           # repeatable
+    python3 chip_smoke.py --recipe-tables RUN [--profile DIR]
+                                          # only the kernels at the
+                                          # recipe's scale, on the newest
+                                          # checkpoints of a
+                                          # cli.full_schedule run in RUN
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build    compile csrc/*.cu with nvcc (in parallel) and load them
@@ -305,14 +310,50 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  (two ranks sharing one card: correctness, not scaling) and
                  the bytes a rank receives.
 
+  The recipe (the reference's two-stage schedule through the commands a
+  user runs):
+  34. recipe     python -m svgir_tpu_torch.cli.make_synth_dataset's main
+                 at full width and fewer views (800x800, 20,000 GT
+                 surfels, S = 24, 6 + 2 views), then cli.full_schedule's
+                 main on that scene: 700 stage-1 iterations (the
+                 densification passes at 600 and 700 run), 30 stage-2
+                 iterations at S = 64 with their bake, eval_nvs of both
+                 stages (and of stage 1's test views at scale 1 beside
+                 the default scale 4).  Checks: every file written, losses and PSNRs
+                 finite, no binner overflow in either log, the last
+                 densification pass leaves more surfels alive than the
+                 first, each part's launches (B1-B4 every stage-1 step,
+                 B1-B4 and B7 every stage-2 step, B8 in the bake, no B5,
+                 B6 or B9).  A [recipe] line: each part's seconds and
+                 peak memory, ms a step, the alive counts and the passes,
+                 the bake's grid, exhausted share and seconds, the PSNRs.
+
+With --recipe-tables RUN the script builds the kernels and runs only the
+recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
+checkpoint, B1-B4 and B7 on an S = 64 step of its newest stage-2
+checkpoint, B8 on the fullest chunk of a bake of that checkpoint's
+surfels, each against its plain version and timed with its bound; the
+steps' ms and peak memory, the bake's; with --profile DIR, the profiles
+of three steps of each stage and of the bake; and ``[recipe-scale]``:
+the stage-1 checkpoint's test PSNR at eval_nvs's scale 4, at scale 1,
+pooled from scale 1, and at scale 4 with the screen-space dilation cut
+to its scale-1 size.  A row's ``launches`` counts this run's one step
+(or bake) of the row; ``recipe_run_launches`` the schedule's, from RUN's
+schedule.json.  A disagreement with a plain version is logged, named
+in the row's ``disagrees`` and fails the run after the tables.  That
+mode ends with the kernels JSON and the card's line, and without the
+result line: it runs none of the phases.
+
 The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
-Each kernel row of the JSON also carries ``parallel_launches``: its
-launches on each path of phases 32-33.
+Each kernel row of the JSON also carries ``parallel_launches`` and
+``recipe_launches``: its launches on each path of phases 32-33 and in
+each part of phase 34.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -429,13 +470,13 @@ def device_ms(fn, reps=20):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.02)
-    return device_by_name(prof, reps)
+    return device_by_name(prof, reps)[:3]
 
 
 def device_by_name(prof, reps):
-    """(ms, operations, share recorded) per call of a profiled window of
-    ``reps`` calls, each device operation counted by name as
-    ``device_ms`` says."""
+    """(ms, operations, share recorded, {name: ms}) per call of a
+    profiled window of ``reps`` calls, each device operation counted by
+    name as ``device_ms`` says."""
     import math
 
     from torch.autograd import DeviceType
@@ -449,9 +490,10 @@ def device_by_name(prof, reps):
     if not by_name:
         raise AssertionError("torch.profiler recorded no device operation")
     per_call = {k: math.ceil(n / reps) for k, (n, _) in by_name.items()}
-    ms = sum(us / n * per_call[k] for k, (n, us) in by_name.items()) / 1e3
+    op_ms = {k: us / n * per_call[k] / 1e3 for k, (n, us) in by_name.items()}
     ops = sum(per_call.values())
-    return ms, ops, sum(n for n, _ in by_name.values()) / (ops * reps)
+    return (sum(op_ms.values()), ops,
+            sum(n for n, _ in by_name.values()) / (ops * reps), op_ms)
 
 
 def timings(kfn, pfn, lfn=None, *, reps=20, plain_reps=3):
@@ -735,6 +777,8 @@ def check_image(ki, pi, nch, tag, feature_max=None):
     of exp and not by the other) are held instead to what one such pair
     moves: logT by -log(1 - 1/255), the sums by 1/255 of (feature_max +
     the sum) beyond TOL_IMG."""
+    import torch
+
     from svgir_tpu_torch.ops.common import LOG_T_EPS
 
     flip = ki[nch + 1] != pi[nch + 1]
@@ -743,14 +787,34 @@ def check_image(ki, pi, nch, tag, feature_max=None):
     d = (ki[:nch] - pi[:nch]).abs()
     err_img = float(d.max()) if nch else 0.0
     lim = TOL_IMG * (1 + pi[:nch].abs())
-    if not bool((d <= lim)[:, keep].all()):
-        raise AssertionError(f"{tag} channel sums differ by {err_img}")
+    viol = ~(d <= lim) & keep[None]
+    if bool(viol.any()):
+        pix = viol.any(0)
+        where = torch.nonzero(viol)        # row-major, as d[viol]
+        c, y, x = (int(v) for v in where[torch.argmax(d[viol])])
+        raise AssertionError(
+            f"{tag} channel sums differ by {err_img}: {int(viol.sum())} "
+            f"sums at {int(pix.sum())} pixels over the tolerance, "
+            f"{int((pix & flip).sum())} of those pixels where n_contrib "
+            f"differs ({nc_bad} such pixels in all); the largest at "
+            f"channel {c}, pixel ({y}, {x}): kernel {float(ki[c, y, x]):.7g}"
+            f", plain {float(pi[c, y, x]):.7g}, logT "
+            f"{float(ki[nch, y, x]):.7g} / {float(pi[nch, y, x]):.7g}, "
+            f"n_contrib {float(ki[nch + 1, y, x]):.0f} / "
+            f"{float(pi[nch + 1, y, x]):.0f}")
     sat = pi[nch] < LOG_T_EPS
     dl = (ki[nch] - pi[nch]).abs()
     err_lt = float(dl.max())
-    if bool((dl[~sat & keep] > 1e-5).any()) or \
-            bool((dl[sat & keep] > TOL_LOGT_SAT).any()):
-        raise AssertionError(f"{tag} logT differs by {err_lt}")
+    over = ((dl > 1e-5) & ~sat | (dl > TOL_LOGT_SAT) & sat) & keep
+    if bool(over.any()):
+        y, x = (int(v) for v in torch.nonzero(over)[torch.argmax(dl[over])])
+        raise AssertionError(
+            f"{tag} logT differs by {err_lt}: at {int((over & ~sat).sum())}"
+            f" unsaturated and {int((over & sat).sum())} saturated pixels "
+            f"over the tolerance; the largest at pixel ({y}, {x}): kernel "
+            f"{float(ki[nch, y, x]):.7g}, plain {float(pi[nch, y, x]):.7g},"
+            f" n_contrib {float(ki[nch + 1, y, x]):.0f} / "
+            f"{float(pi[nch + 1, y, x]):.0f}")
     if nc_bad > ki[nch + 1].numel() // 10000:
         raise AssertionError(f"{tag} n_contrib differs at {nc_bad} pixels")
     if feature_max is not None and nc_bad:
@@ -1190,7 +1254,8 @@ def library_counts_carry(calls):
 def profile_step(fn, out_dir, name="chip_smoke_profile.txt", steps=3):
     """torch.profiler table of ``steps`` train steps (after a warm-up),
     sorted by device time, written to ``out_dir/name``, with the device
-    busy time per step counted by name as ``device_ms`` counts it."""
+    busy time per step counted by name as ``device_ms`` counts it;
+    returns {device operation: ms per step}."""
     import os
 
     import torch
@@ -1204,7 +1269,7 @@ def profile_step(fn, out_dir, name="chip_smoke_profile.txt", steps=3):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.02)
-    busy, ops, rec = device_by_name(prof, steps)
+    busy, ops, rec, op_ms = device_by_name(prof, steps)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
     head = (f"{steps} steps; device busy {busy:.3f} ms per step ({ops} "
@@ -1215,6 +1280,7 @@ def profile_step(fn, out_dir, name="chip_smoke_profile.txt", steps=3):
     log(f"[profile] {name}: {head}; by device time over the {steps} steps:")
     for line in table.splitlines()[:25]:
         log("[profile] " + line)
+    return op_ms
 
 
 # ---------------------------------------------------------------------------
@@ -4469,6 +4535,616 @@ def run_two_ranks(card, dev, cfg, tmp, paths):
     log(f"[two ranks] {time.time() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the recipe (phase 34) and its tables at the reference's scale
+# ---------------------------------------------------------------------------
+
+# Phase 34's cut of the recipe: the generator at full width with 6 + 2
+# views; stage 1 past the first densification passes (from iteration 500,
+# every 100); a few S = 64 steps with their bake.
+RECIPE_SCENE = ["--res", "800", "--views", "6", "--test-views", "2",
+                "--n-gt", "20000", "--sample-num", "24"]
+RECIPE_S1 = 700
+RECIPE_S2 = 30
+
+
+def _read_log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _schedule_parts(sched):
+    """``[recipe]``-line text of a schedule.json's parts."""
+    return ", ".join(f"{k} {v['seconds']:.1f} s (peak "
+                     f"{v.get('peak_gb', float('nan')):.2f} GiB)"
+                     for k, v in sched["parts"].items())
+
+
+def _densify_counts(out):
+    return {k: int(v) for k, v in out[2].items() if k.startswith("n_")}
+
+
+def run_recipe(card, dev):
+    """Phase 34: cli.make_synth_dataset, then cli.full_schedule on its
+    scene, as a user runs them; returns each part's launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from svgir_tpu_torch import kernels
+    from svgir_tpu_torch.cli import (eval_nvs, full_schedule,
+                                     make_synth_dataset)
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    from svgir_tpu_torch.train import trainer
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, run = os.path.join(tmp, "scene"), os.path.join(tmp, "run")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        make_synth_dataset.main(["--out", scene, *RECIPE_SCENE])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_launches = kernels.launches()
+        check_launches(gen_launches, "recipe scene",
+                       at_least=[("binning_counts", 8), ("blend_forward", 8),
+                                 ("env_lookup_forward", 8), ("march", 1)])
+        for split, flag in (("train", "--views"), ("test", "--test-views")):
+            n = int(RECIPE_SCENE[RECIPE_SCENE.index(flag) + 1])
+            for i in range(n):
+                if not os.path.exists(os.path.join(scene, split,
+                                                   f"r_{i}.png")):
+                    raise AssertionError(f"recipe scene: no {split}/r_{i}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Recorder(trainer, "bake_radiance_compact") as r_bake, \
+                Recorder(GT, "build_grid_auto") as r_grid, \
+                Recorder(G, "densify_and_prune", keep=0,
+                         inspect=_densify_counts) as r_dens:
+            full_schedule.main(["--scene", scene, "--run", run,
+                                "--s1_iters", str(RECIPE_S1), "--s2_iters",
+                                str(RECIPE_S1 + RECIPE_S2)])
+        torch.cuda.synchronize()
+        with open(os.path.join(run, "schedule.json")) as f:
+            sched = json.load(f)
+        out1, out2 = os.path.join(run, "gss"), os.path.join(run,
+                                                            "render_relight")
+        for path in (f"gss/chkpnt{RECIPE_S1}.npz",
+                     f"render_relight/chkpnt{RECIPE_S1 + RECIPE_S2}.npz",
+                     "gss/eval/metrics.json", "gss/eval/test/metrics.json",
+                     "gss/eval/train/metrics.json",
+                     "render_relight/eval/metrics.json",
+                     "render_relight/eval/test/metrics.json"):
+            if not os.path.exists(os.path.join(run, path)):
+                raise AssertionError(f"recipe: no {path}")
+        # the stage-1 test views at full size beside eval_nvs's default
+        # scale 4 (200x200)
+        full = eval_nvs.main(["--eval", "-s", scene, "-m",
+                              os.path.join(tmp, "scale1"), "-c",
+                              sched["stage1_checkpoint"], "--skip_train",
+                              "--eval_scale", "1"])
+        log1 = _read_log(os.path.join(out1, "train_log.jsonl"))
+        log2 = _read_log(os.path.join(out2, "train_log.jsonl"))
+        with open(os.path.join(out1, "eval", "metrics.json")) as f:
+            end1 = json.load(f)
+        with open(os.path.join(out2, "eval", "metrics.json")) as f:
+            end2 = json.load(f)
+    for e in log1 + log2:
+        if not math.isfinite(e["loss"]) or e.get("overflow"):
+            raise AssertionError(f"recipe: bad log entry {e}")
+    psnrs = {"stage 1 eval_nvs test": sched["eval_stage1"]["test"]["psnr"],
+             "stage 1 eval_nvs test at scale 1": full["test"]["psnr"],
+             "stage 1 eval_nvs train": sched["eval_stage1"]["train"]["psnr"],
+             "stage 2 eval_nvs test": sched["eval_stage2"]["test"]["psnr"],
+             "stage 1 end-of-run test": end1["psnr"],
+             "stage 2 end-of-run test (pbr)": end2["psnr"]}
+    if not all(math.isfinite(v) for v in psnrs.values()):
+        raise AssertionError(f"recipe: PSNRs {psnrs}")
+    # the first pass prunes the bootstrap's unseen points; the later ones
+    # must add more surfels than they prune
+    passes = r_dens.seen
+    if len(passes) < 2 or not passes[-1]["n_alive"] > passes[0]["n_alive"]:
+        raise AssertionError(f"recipe: the densification passes {passes} "
+                             "did not grow the model")
+    parts = {"scene": gen_launches,
+             **{k: v["launches"] for k, v in sched["parts"].items()}}
+    need = {"stage1": [(k, RECIPE_S1) for k in STAGE1_KERNELS],
+            "stage2": [(k, RECIPE_S2) for k in STAGE2_KERNELS]
+            + [("march", 1)],
+            "eval_stage1": [(k, 1) for k in STAGE1_KERNELS[:3]],
+            "eval_stage2": [(k, 1) for k in STAGE1_KERNELS[:3]]
+            + [("env_lookup_forward", 1)]}
+    for part, at_least in need.items():
+        check_launches(parts[part], f"recipe {part}", at_least=at_least,
+                       none=("blend_forward_tiles", "blend_backward_tiles",
+                             "pad_cols", "slice_cols"))
+    bakes = [(int(c[0][1].sum()), float(c[2]["exhausted_frac"]),
+              round(c[3], 3)) for c in r_bake.calls]
+    grids = [(g.res, g.cell_cap, g.overflow) for _, _, g, _ in r_grid.calls]
+    if any(g[2] for g in grids):
+        log(f"[recipe] the bake's grid clipped its cell lists: {grids}")
+    ms1 = log1[-1]["elapsed"] / RECIPE_S1 * 1e3
+    ms2 = log2[-1]["elapsed"] / RECIPE_S2 * 1e3
+    log(f"[recipe] scene (8 views of 800x800, 20,000 GT surfels, S = 24) "
+        f"{gen_s:.1f} s; schedule: {_schedule_parts(sched)}; stage 1 "
+        f"{ms1:.2f} ms a step over {RECIPE_S1} (densifying), alive "
+        f"{log1[0]['n_alive']} -> {log1[-1]['n_alive']}, densification "
+        f"passes {passes}; stage 2 {ms2:.2f} ms a step over "
+        f"{RECIPE_S2} at S = 64; bakes (alive, exhausted share, s): "
+        f"{bakes}; grids (res, cell cap, clipped): {grids}; PSNRs "
+        + ", ".join(f"{k} {v:.4f}" for k, v in psnrs.items())
+        + f"; phase {time.time() - t_phase:.1f} s; card: {card}")
+    log("[recipe] launches by part: " + json.dumps(
+        {p: {k: v for k, v in lc.items() if v} for p, lc in parts.items()}))
+    return parts
+
+
+def recipe_tables(run, card, dev, profile_dir=None):
+    """``--recipe-tables RUN``: the kernels at the recipe's scale, on the
+    newest checkpoints of a cli.full_schedule run in RUN (its
+    schedule.json names the scene): B1-B4 on a stage-1 step, B1-B4 and
+    B7 on an S = 64 step, B8 on the fullest ray chunk of a bake of the
+    stage-2 checkpoint's surfels, each against its plain version, timed
+    with its bound; the steps' and the bake's wall times and peak memory;
+    with ``profile_dir``, torch.profiler tables of three steps of each
+    stage and of a bake; ``recipe_scale_probe`` on the stage-1
+    checkpoint.  ``launches`` in a row is the kernel's launches in this
+    run's one step (or bake) of the row, counted from 0 just before it;
+    ``recipe_run_launches`` the launches of the whole schedule RUN ran,
+    read from its schedule.json.  A kernel that disagrees with its plain
+    version is logged and named in its rows' ``disagrees``; the tables go
+    on.  Returns (rows, {kernel: disagreements})."""
+    import os
+
+    import torch
+
+    from svgir_tpu_torch import kernels
+
+    from svgir_tpu_torch.cli import full_schedule as FS
+    from svgir_tpu_torch.cli import train as CLI
+    from svgir_tpu_torch.config import (OptimizationConfig, RasterConfig,
+                                        from_args)
+    from svgir_tpu_torch.data.readers import load_scene
+    from svgir_tpu_torch.kernels import binning as KB
+    from svgir_tpu_torch.kernels import blend as KBL
+    from svgir_tpu_torch.kernels import env_lookup as KE
+    from svgir_tpu_torch.ops import binning_pallas as BP
+    from svgir_tpu_torch.ops import blend_pallas_strip as BS
+    from svgir_tpu_torch.ops import env_lookup_pallas as EP
+    from svgir_tpu_torch.ops import grid_tracer as GT
+    from svgir_tpu_torch.ops import march_pallas as MP
+    from svgir_tpu_torch.train import checkpoint as CK
+    from svgir_tpu_torch.train import optim, trainer
+    from svgir_tpu_torch.train.cap_probe import snug_instance_cap
+    from svgir_tpu_torch.train.staging import stage_cameras
+
+    with open(os.path.join(run, "schedule.json")) as f:
+        sched = json.load(f)
+    per_run = {}
+    for part in sched["parts"].values():
+        for k, v in part.get("launches", {}).items():
+            per_run[k] = per_run.get(k, 0) + v
+    scene = load_scene(sched["scene"], white_background=False,
+                       eval_split=False)
+    extent = scene.cameras_extent
+    cams = stage_cameras([trainer.strip_meta(c)
+                          for c in scene.train_cameras[:3]], device=dev)
+    bg = torch.zeros(3, device=dev)
+    sources = {"binning_counts": "binning.cu", "binning_instances":
+               "binning.cu", "blend_forward": "blend_forward.cu",
+               "blend_backward": "blend_backward.cu",
+               "env_lookup_forward": "env_lookup.cu",
+               "env_lookup_backward": "env_lookup.cu", "march": "march.cu"}
+    replaces = {"binning_counts": "binning_pallas.py:44",
+                "binning_instances": "binning_pallas.py:114",
+                "blend_forward": "blend_pallas_strip.py:51",
+                "blend_backward": "blend_pallas_strip.py:267",
+                "env_lookup_forward": "env_lookup_pallas.py:63",
+                "env_lookup_backward": "env_lookup_pallas.py:76",
+                "march": "march_pallas.py:66"}
+    report = []
+    sched_path = os.path.join(run, "schedule.json")
+    disagree = {}       # kernel name -> what its comparison said
+
+    def held(fn, names, label):
+        """fn(), a comparison of kernels with their plain versions: a
+        disagreement is logged and kept for ``names``' rows, the tables
+        go on, and the run fails at its end."""
+        try:
+            return fn()
+        except AssertionError as exc:
+            for n in names:
+                disagree.setdefault(n, []).append(f"{label}: {exc}")
+            log(f"[recipe-table] DISAGREES {label}: {exc}; card: {card}")
+            return None
+
+    def row(name, label, t, bnd, err, launched, per, **extra):
+        report.append({
+            "name": f"{name}_recipe_"
+            + re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
+            "route": "cuda",
+            "source": f"svgir_tpu_torch/csrc/{sources[name]}",
+            "replaces": f"svgir_tpu/ops/{replaces[name]}",
+            "launches": launched[name], "launches_in": per,
+            "max_abs_err": err, **t,
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "recipe_run_launches": per_run.get(name, 0),
+            "recipe_run_launches_from": sched_path,
+            **({"disagrees": disagree[name]} if name in disagree else {}),
+            **extra})
+        log(f"[recipe-table] {name}, {label}: " + fmt_times(t)
+            + f", bound {bnd[0]:.4f} ms by {bnd[1]}, max|err| {err:.3g}; "
+            f"{launched[name]} launches in {per} (this run); "
+            f"{per_run.get(name, 0)} in the schedule of {sched_path}; "
+            f"card: {card}")
+
+    def counted(fn, label, at_least):
+        """fn() with the launch counts set to 0 just before it, read just
+        after; fails if a kernel of ``at_least`` was launched too few
+        times."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = kernels.launches()
+        check_launches(launched, label, at_least=at_least)
+        return out, launched
+
+    def peak_ms(fn, label):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = host_ms(fn, reps=10, warmup=1)
+        log(f"[recipe-table] {label}: {ms:.3f} ms a step (median of 10, "
+            f"ended by a synchronize), peak {peak:.3f} GiB; card: {card}")
+
+    def against_float64(calls, label):
+        """B3 and its plain version against the plain version in float64,
+        on the pixels where all three blend the same pairs and are not
+        saturated: which of the two lies further from exact."""
+        from svgir_tpu_torch.ops.common import LOG_T_EPS
+        a3, kw3 = calls["blend_forward"]
+        n = kw3["ca"] + kw3["cv"]
+        with torch.no_grad():
+            ki = KBL.blend_forward(*a3, **kw3)[0].double()
+            pi = BS.blend_forward_plain(*a3, **kw3)[0].double()
+            di = BS.blend_forward_plain(a3[0].double(), *a3[1:], **kw3)[0]
+        same = ((ki[n + 1] == pi[n + 1]) & (pi[n + 1] == di[n + 1])
+                & (di[n] >= LOG_T_EPS))
+        errs = {who: (float((x[n] - di[n])[same].abs().max()),
+                      float((x[:n] - di[:n])[:, same].abs().max()))
+                for who, x in (("kernel", ki), ("plain", pi))}
+        log(f"[recipe-table] {label}, B3 and its plain version against the "
+            f"plain version in float64 on the {int(same.sum())} of "
+            f"{same.numel()} pixels where all three blend the same pairs "
+            "and none is saturated: max |logT error| (kernel, plain) "
+            f"({errs['kernel'][0]:.3g}, {errs['plain'][0]:.3g}), max "
+            f"|channel sum error| ({errs['kernel'][1]:.3g}, "
+            f"{errs['plain'][1]:.3g}); largest n_contrib "
+            f"{int(di[n + 1].max())}; card: {card}")
+
+    def blend_rows(calls, label, launched, per):
+        nan = float("nan")
+        errs = held(lambda: compare_blend(calls, f"recipe {label}"),
+                    ("blend_forward", "blend_backward"), f"B3/B4 {label}")
+        err3, err4 = errs or (nan, nan)
+        if errs is None:        # B4 too, where B3 stopped the comparison
+            b, bkw = calls["blend_backward"]
+            with torch.no_grad():
+                err4 = held(lambda: check_rows(
+                    KBL.blend_backward(*b, **bkw),
+                    BS.blend_backward_plain(*b, **bkw),
+                    calls["blend_forward"][1]["ca"], f"B4 [recipe {label}]"),
+                    ("blend_backward",), f"B4 {label}")
+            err4 = nan if err4 is None else err4
+            against_float64(calls, label)
+        bnd = bounds(calls)
+        wk = bnd["blend_work"]
+        log(f"[recipe-table] {label} blend work: {wk['rows']} real rows, "
+            f"{wk['pairs']} pairs, {wk['ok']} pass the footprint test, "
+            f"{wk['gated']} blend")
+        a3, kw3 = calls["blend_forward"]
+        a4, kw4 = calls["blend_backward"]
+        with torch.no_grad():
+            for name, kfn, pfn, err in (
+                    ("blend_forward", lambda: KBL.blend_forward(*a3, **kw3),
+                     lambda: BS.blend_forward_plain(*a3, **kw3), err3),
+                    ("blend_backward",
+                     lambda: KBL.blend_backward(*a4, **kw4),
+                     lambda: BS.blend_backward_plain(*a4, **kw4), err4)):
+                row(name, label, timings(kfn, pfn), bnd[name], err,
+                    launched, per, ca=kw3["ca"], cv=kw3["cv"])
+        return bnd
+
+    # ---- stage 1: the completed stage-1 checkpoint --------------------
+    it1, ck1 = FS.latest_checkpoint(os.path.join(run, "gss"))
+    recipe_scale_probe(ck1, sched["scene"], card, dev)
+    _, tree = CK.load_checkpoint(ck1, device=dev)
+    st1, ost1 = tree["state"], tree["opt"]
+    opt1 = from_args(OptimizationConfig, CLI.build_parser().parse_args(
+        ["-s", sched["scene"], *FS.STAGE1_FLAGS]))
+    cfg1 = RasterConfig(max_instances=snug_instance_cap(
+        st1["params"], scene.train_cameras, RasterConfig(),
+        alive=st1["alive"]))
+    step1 = trainer.make_train_step(
+        opt1, cfg1, bg, lrs=optim.group_lrs(opt1, extent),
+        track_stats=it1 < opt1.densify_until_iter, device=dev)
+    xyz1 = opt1.position_lr_final * extent
+    turn = [0]
+
+    def s1():
+        turn[0] += 1
+        return step1(st1, ost1, cams[turn[0] % len(cams)], float(it1), xyz1)
+    log(f"[recipe-table] stage 1 from {ck1}: {int(st1['alive'].sum())} "
+        f"alive of {st1['alive'].shape[0]}, cap {cfg1.max_instances}")
+    with Capture() as cap1:
+        _, l1 = counted(lambda: step1(st1, ost1, cams[0], float(it1), xyz1),
+                        "recipe-table stage-1 step",
+                        [(k, 1) for k in STAGE1_KERNELS])
+    c1 = cap1.calls
+    held(lambda: compare_binning(c1), ("binning_counts", "binning_instances"),
+         "B1/B2 stage 1")
+    bnd1 = blend_rows(c1, "stage 1", l1, "a stage-1 step")
+    a1, kw1 = c1["compute_counts"]
+    kk1 = dict(grid_x=kw1["grid_x"], grid_y=kw1["grid_y"],
+               gauss_chunk=kw1.get("gauss_chunk", 256))
+    a2, kw2 = c1["compute_instances"]
+    for name, kfn, pfn in (
+            ("binning_counts", lambda: KB.counts(*a1, **kk1),
+             lambda: BP.counts_plain(*a1, **kk1)),
+            ("binning_instances", lambda: KB.instances(*a2, **kw2),
+             lambda: BP.instances_plain(*a2, **kw2))):
+        row(name, "stage 1", timings(kfn, pfn), bnd1[name], 0.0, l1,
+            "a stage-1 step")
+    log(f"[recipe-table] stage 1: {int(a2[7])} instances")
+    peak_ms(s1, "stage-1 step")
+    if profile_dir:
+        profile_step(s1, profile_dir, "recipe_profile_stage1.txt")
+    del st1, ost1, tree, c1, cap1
+
+    # ---- stage 2 at S = 64: the newest stage-2 checkpoint --------------
+    it2, ck2 = FS.latest_checkpoint(os.path.join(run, "render_relight"))
+    _, tree = CK.load_checkpoint(ck2, device=dev)
+    st2, ost2, env2 = tree["state"], tree["opt"], tree["env"]
+    bake = {k: v for k, v in tree["extra"].items() if k != "exhausted_frac"}
+    s_num = bake["hit_idx"].shape[1]
+    opt2 = from_args(OptimizationConfig, CLI.build_parser().parse_args(
+        ["-s", sched["scene"], *FS.STAGE2_FLAGS]))
+    cfg2 = RasterConfig(max_instances=snug_instance_cap(
+        st2["params"], scene.train_cameras, RasterConfig(),
+        alive=st2["alive"]))
+    step2 = trainer.make_svgss_train_step(
+        opt2, cfg2, bg, lrs=optim.group_lrs(opt2, extent, use_pbr=True),
+        device=dev)
+
+    def s2():
+        turn[0] += 1
+        return step2(st2, ost2, env2, bake, cams[turn[0] % len(cams)],
+                     float(it2 - it1), 0.0, 0.0)
+    log(f"[recipe-table] stage 2 from {ck2}: {int(st2['alive'].sum())} "
+        f"alive of {st2['alive'].shape[0]}, S = {s_num}, env "
+        f"{tuple(env2['params']['env'].shape)}, cap {cfg2.max_instances}")
+    with Capture() as cap2:
+        _, l2 = counted(lambda: step2(st2, ost2, env2, bake, cams[0],
+                                      float(it2 - it1), 0.0, 0.0),
+                        f"recipe-table S = {s_num} step",
+                        [(k, 1) for k in STAGE2_KERNELS])
+    c2 = cap2.calls
+    held(lambda: compare_binning(c2), ("binning_counts", "binning_instances"),
+         "B1/B2 stage 2")
+    per2 = f"an S = {s_num} step"
+    blend_rows(c2, "stage 2", l2, per2)
+    e7 = held(lambda: compare_env(c2, f"recipe S = {s_num}"),
+              ("env_lookup_forward", "env_lookup_backward"),
+              f"B7 S = {s_num}")
+    if e7 is None:
+        e7 = (float("nan"), float("nan"))
+        b7, b7kw = c2["env_lookup_backward"]
+        with torch.no_grad():
+            exact = EP.env_lookup_backward_plain(
+                *(x.double() for x in b7), **b7kw)
+            scale = max(float(exact.abs().max()), 1e-30)
+            errs = [float((x.double() - exact).abs().max()) / scale
+                    for x in (KE.env_lookup_backward(*b7, **b7kw),
+                              EP.env_lookup_backward_plain(*b7, **b7kw))]
+        log(f"[recipe-table] S = {s_num}, B7's backward and its plain "
+            "version against the plain version in float64: max error "
+            f"(kernel, plain) ({errs[0]:.3g}, {errs[1]:.3g}) of max |d_env| "
+            f"{scale:.4g}; card: {card}")
+    fa, _ = c2["env_lookup_forward"]
+    ba, bkw = c2["env_lookup_backward"]
+    bnd7 = env_bounds(fa)
+    with torch.no_grad():
+        for i, (name, kfn, pfn, lfn) in enumerate((
+                ("env_lookup_forward", lambda: KE.env_lookup_forward(*fa),
+                 lambda: EP.env_lookup_forward_plain(*fa),
+                 library_env_forward(fa)),
+                ("env_lookup_backward",
+                 lambda: KE.env_lookup_backward(*ba, **bkw),
+                 lambda: EP.env_lookup_backward_plain(*ba, **bkw),
+                 library_env_backward(c2)))):
+            row(name, f"S = {s_num}", timings(kfn, pfn, lfn), bnd7[name],
+                e7[i], l2, per2, queries=fa[1].numel())
+    peak_ms(s2, f"S = {s_num} step")
+    if profile_dir:
+        ops = profile_step(s2, profile_dir, "recipe_profile_stage2.txt")
+        gather = sum(v for k, v in ops.items() if "indexing_backward" in k)
+        log(f"[recipe-table] S = {s_num} step: the gather backward "
+            f"(indexing_backward_kernel) {gather:.3f} ms a step of "
+            f"{sum(ops.values()):.3f} ms busy; card: {card}")
+    del ost2, env2, bake, c2, cap2, tree
+
+    # ---- the bake of the stage-2 checkpoint's surfels ------------------
+    params, alive = st2["params"], st2["alive"]
+    az = torch.rand(int(alive.sum()), 1, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    def finite(out):
+        return int(torch.isfinite(out["t"]).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad(), Recorder(GT, "nearest_hits_grid",
+                                   inspect=finite) as rg:
+        _, l8 = counted(lambda: trainer.bake_radiance_compact(
+            params, alive, sample_num=s_num, azimuth=az),
+            "recipe-table bake", [("march", 1)])
+    cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        trainer.bake_radiance_compact(params, alive, sample_num=s_num,
+                                      azimuth=az)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"[recipe-table] bake of {int(alive.sum())} surfels x S={s_num}: "
+        f"{cold:.3f} s cold, {warm:.3f} s warm, peak {peak:.3f} GiB, "
+        f"{len(rg.calls)} grid-march chunks; card: {card}")
+    if profile_dir:
+        with torch.no_grad():
+            profile_step(lambda: trainer.bake_radiance_compact(
+                params, alive, sample_num=s_num, azimuth=az), profile_dir,
+                "recipe_profile_bake.txt", steps=1)
+    full = max(range(len(rg.calls)), key=lambda i: rg.seen[i])
+    (_, grid, o, d), hkw, _, _ = rg.calls[full]
+    mkw = dict(t_max=hkw["t_max"], k=hkw["k"], n_steps=hkw["n_steps"],
+               kmax=GT._run_kmax(grid))
+    with torch.no_grad():
+        kt, ki = MP.march(grid, o, d, **mkw)
+        pt, pi = MP.march_plain(grid, o, d, **mkw)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(pt)
+        bad = int(((ki != pi) | (torch.isfinite(kt) != fin)
+                   | (fin & (kt != pt))).sum())
+        both = fin & torch.isfinite(kt)
+        err = float((kt - pt)[both].abs().max()) if bool(both.any()) else 0.0
+        if bad > MARCH_SLOT_TOL * max(int(fin.sum()), 1):
+            def fail():
+                raise AssertionError(f"recipe bake: B8 differs from its "
+                                     f"plain version at {bad} slots")
+            held(fail, ("march",), "B8 bake")
+        t = timings(lambda: MP.march(grid, o, d, **mkw),
+                    lambda: MP.march_plain(grid, o, d, **mkw), reps=10,
+                    plain_reps=1)
+    work = march_work(grid, o, d, pt, **{x: mkw[x] for x in
+                                         ("n_steps", "kmax", "k")})
+    row("march", "bake, fullest chunk", t,
+        march_bound(work, len(o), mkw["k"]), err, l8, "a bake", chunk=full,
+        finite_slots=int(fin.sum()), full_lists=int(fin[:, -1].sum()),
+        grid_res=grid.res, cell_cap=grid.cell_cap, **work)
+    log(f"[recipe-table] B8's fullest chunk ({full} of {len(rg.calls)}): "
+        f"{len(o)} rays, {int(fin.sum())} finite slots, "
+        f"{int(fin[:, -1].sum())} full lists, {bad} slots differ; grid res "
+        f"{grid.res}, cap {grid.cell_cap}; work {work}")
+    return report, disagree
+
+
+@contextlib.contextmanager
+def _dilation(var, seen=None):
+    """Preprocess with the screen-space low-pass variance ``var`` (px^2)
+    in place of the rasterizer's 0.3; ``seen`` receives each call's
+    (view depth, the footprint's own x and y variances)."""
+    from svgir_tpu_torch.ops import preprocess as P
+    orig = P._ewa_cov2d
+
+    def patched(p_view, *args):
+        out = orig(p_view, *args)
+        if seen is not None:
+            seen.append((p_view[:, 2], out[:, 0] - 0.3, out[:, 2] - 0.3))
+        return out + out.new_tensor([var - 0.3, 0.0, var - 0.3])
+    P._ewa_cov2d = patched
+    try:
+        yield
+    finally:
+        P._ewa_cov2d = orig
+
+
+def recipe_scale_probe(ck, scene_path, card, dev):
+    """Why eval_nvs's default scale 4 scores below scale 1 on a
+    recipe-sized model: the stage-1 checkpoint ``ck`` rendered on the
+    scene's test views as eval_nvs renders them (``render_stage1``,
+    2^20 instance slots, black background), scored against the
+    area-resampled images: at scale 4 (200x200; eval_nvs's number), at
+    scale 1, at scale 1 averaged over 4x4 blocks (the scale-4 image of
+    the model seen at the resolution it was fitted at), and at scale 4
+    with the rasterizer's +0.3 px^2 screen-space dilation cut to
+    0.3/16 (the same filter in scene units as at scale 1).  Also the
+    share of the alive surfels in front of each camera whose own
+    footprint (both screen variances) is under the 0.3 px^2 dilation,
+    at each scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+    from svgir_tpu_torch.data.readers import load_scene
+    from svgir_tpu_torch.eval import metrics as M
+    from svgir_tpu_torch.render.stage1 import render_stage1
+    from svgir_tpu_torch.train import checkpoint as CK
+    from svgir_tpu_torch.train.staging import stage_cameras
+    from svgir_tpu_torch.train.trainer import strip_meta
+
+    t0 = time.time()
+    scene = load_scene(scene_path, white_background=False, eval_split=True)
+    _, tree = CK.load_checkpoint(ck, device=dev)
+    params = tree["state"]["params"]
+    alive = tree["state"]["alive"].to(bool)
+    bg = torch.zeros(3, device=dev)
+    cfg, opt = RasterConfig(max_instances=1 << 20), OptimizationConfig()
+
+    def render(cam, var=0.3, seen=None):
+        with _dilation(var, seen):
+            res = render_stage1(stage_cameras([strip_meta(cam)],
+                                              device=dev)[0],
+                                params, bg, opt=opt, is_training=False,
+                                alive=alive, cfg=cfg)
+        if bool(res["overflow"]):
+            raise AssertionError("recipe scale probe: binner overflow")
+        return torch.clamp(res["render"], 0, 1)
+
+    def small(seen):
+        z, vx, vy = seen[-1]
+        rows = alive & (z > 0.2)
+        own = torch.maximum(vx, vy)[rows]
+        return (float((own < 0.3).float().mean()),
+                float(own.clamp(min=0).sqrt().median()))
+
+    psnr = {k: [] for k in ("scale 4", "scale 1", "scale 1 pooled 4x4",
+                            "scale 4, dilation 0.3/16")}
+    share = {"scale 1": [], "scale 4": []}
+    with torch.no_grad():
+        for c1, c4 in zip(scene.test_cameras_at(1), scene.test_cameras_at(4)):
+            gt1, gt4 = c1.image.to(dev), c4.image.to(dev)
+            seen1, seen4 = [], []
+            r1, r4 = render(c1, seen=seen1), render(c4, seen=seen4)
+            psnr["scale 4"].append(M.psnr(r4, gt4))
+            psnr["scale 1"].append(M.psnr(r1, gt1))
+            psnr["scale 1 pooled 4x4"].append(
+                M.psnr(F.avg_pool2d(r1[None], 4)[0], gt4))
+            psnr["scale 4, dilation 0.3/16"].append(
+                M.psnr(render(c4, var=0.3 / 16), gt4))
+            share["scale 1"].append(small(seen1))
+            share["scale 4"].append(small(seen4))
+    mean = {k: statistics.fmean(v) for k, v in psnr.items()}
+    if not all(math.isfinite(v) for v in mean.values()):
+        raise AssertionError(f"recipe scale probe: PSNRs {mean}")
+    log(f"[recipe-scale] {ck}: {int(alive.sum())} alive, "
+        f"{len(psnr['scale 4'])} test views; test PSNR "
+        + ", ".join(f"{k} {v:.4f} dB" for k, v in mean.items())
+        + "; alive surfels in front whose own footprint is under the "
+        "0.3 px^2 dilation (share, median own sigma px): "
+        + ", ".join(f"{k} ({statistics.fmean(a for a, _ in v):.4f}, "
+                    f"{statistics.fmean(b for _, b in v):.4f})"
+                    for k, v in share.items())
+        + f"; {time.time() - t0:.1f} s; card: {card}")
+    return mean
+
+
 def log_blend_work(bnd, a, kw, label):
     """Logs what a B3 call had to do: its instances, the real rows of the
     chunks its tiles processed, the (pixel, row) pairs tested, passing the
@@ -4572,6 +5248,26 @@ def main() -> int:
     ptx = ptxas_blend(build_log)
     for (direction, args), v in sorted(ptx.items()):
         log(f"[ptxas] blend {direction} <{', '.join(map(str, args))}>: {v}")
+    if "--recipe-tables" in sys.argv[1:-1]:
+        out_dir = sys.argv[sys.argv.index("--profile") + 1] \
+            if "--profile" in sys.argv[1:-1] else None
+        # the floor first: late in a long run the profiler drops records
+        floor_ms = device_ms(launch_floor())[0]
+        report, disagree = recipe_tables(
+            sys.argv[sys.argv.index("--recipe-tables") + 1], card, dev,
+            out_dir)
+        # the kernels JSON and the card, and not the result line: this
+        # mode does not run the phases
+        for entry in report:
+            entry["launch_floor_device_ms"] = floor_ms
+        print(json.dumps({"kernels": report}), flush=True)
+        print(card, flush=True)
+        if disagree:
+            print("recipe tables: kernels disagree with their plain "
+                  f"versions: {json.dumps(disagree)}", file=sys.stderr,
+                  flush=True)
+            return 1
+        return 0
     parents = [parent_kernels(sys.argv[i + 1])
                for i, a in enumerate(sys.argv[1:-1], 1) if a == "--parent"]
     for p in parents:
@@ -5193,12 +5889,26 @@ def main() -> int:
             entry["parallel_launches"] = {path: lc[key]
                                           for path, lc in paths.items()}
 
+    # ---- 34. the recipe: the scene generator and full_schedule -----------
+    recipe = run_recipe(card, dev)
+    for entry in report:
+        key = max((k for k in kernels.KERNEL_NAMES
+                   if entry["name"].startswith(k)), key=len, default=None)
+        if key is not None:
+            entry["recipe_launches"] = {part: lc[key]
+                                        for part, lc in recipe.items()}
+
     if out_dir:
         profile_step(lambda: step(state, ost0, cam, 1.0, 1.6e-4), out_dir)
         profile_step(lambda: step2(*s2_args), out_dir,
                      "chip_smoke_profile_stage2.txt")
     log(f"[done] {time.time() - t_start:.1f} s")
+    return finish(report, card, floor_ms)
 
+
+def finish(report, card, floor_ms):
+    """The last three lines: the kernels JSON, the card, the result."""
+    import torch
     for entry in report:
         entry["launch_floor_device_ms"] = floor_ms
     print(json.dumps({"kernels": report}), flush=True)

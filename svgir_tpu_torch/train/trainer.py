@@ -225,11 +225,13 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
 
     history = []
     t0 = time.time()
+    overflow = None       # any frame since the last log line, on the device
     for it in range(first_iter + 1, iterations + 1):
         cam = camera_for_iter(cams, it, seed)
         xyz_lr = float(xyz_sched(it))
         fn = step_fast if it >= opt.densify_until_iter else step_fn
         state, opt_state, tb = fn(state, opt_state, cam, float(it), xyz_lr)
+        overflow = _any_overflow(overflow, tb)
         if it < opt.densify_until_iter:
             state, opt_state = _densify_cadence(
                 it, state, opt_state, opt, extent, white_background,
@@ -242,10 +244,11 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
                      "loss": float(tb["loss"]),
                      "n_alive": int(state["alive"].sum()),
                      "elapsed": time.time() - t0, **extras}
-            if _overflowed(entry, tb, it) and auto_grow_instances:
+            if _overflowed(entry, overflow, it) and auto_grow_instances:
                 raster_cfg = _grow_instance_cap(raster_cfg)
                 step_fn = make(raster_cfg, True)
                 step_fast = make(raster_cfg, False)
+            overflow = None
             history.append(entry)
             if callback:
                 callback(entry, state)
@@ -299,14 +302,22 @@ def _densify_cadence(it: int, state, opt_state, opt: OptimizationConfig,
     return state, opt_state
 
 
-def _overflowed(entry, tb, it) -> bool:
-    """Flag and report a binner overflow (instances were dropped this
-    frame); checked at log cadence only."""
-    if not bool(tb["overflow"]):
+def _any_overflow(overflow, tb):
+    """The binner's overflow flag of this step or-ed into ``overflow``
+    (None: no step since the last log line), on the device: no sync."""
+    flag = torch.as_tensor(tb["overflow"])
+    return flag if overflow is None else overflow | flag
+
+
+def _overflowed(entry, overflow, it) -> bool:
+    """Flag and report a binner overflow (instances were dropped in a
+    frame since the last log line); read at log cadence only, so that the
+    steps in between do not wait for the device."""
+    if overflow is None or not bool(overflow):
         return False
     entry["overflow"] = 1.0
-    print(f"WARNING: instance-buffer overflow at iter {it}: splats were "
-          "dropped this frame", flush=True)
+    print(f"WARNING: instance-buffer overflow at or before iter {it}: "
+          "splats were dropped", flush=True)
     return True
 
 
@@ -393,9 +404,13 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         if bake_azimuth is None:
             bake_azimuth = torch.rand(int(state["alive"].sum()), 1,
                                       generator=gen, device=device)
+        t0 = time.time()
         bake = bake_radiance_compact(params, state["alive"],
                                      sample_num=sample_num,
                                      azimuth=bake_azimuth)
+        print(f"bake: {int(state['alive'].sum())} surfels x S={sample_num}, "
+              f"{float(bake['exhausted_frac']):.4%} of rays exhausted, "
+              f"{time.time() - t0:.2f} s", flush=True)
     bake = {k: v for k, v in bake.items() if k != "exhausted_frac"}
     if "incident_qxy" not in bake:      # a bake saved by svgir_tpu
         bake["incident_qxy"] = torch.stack(
@@ -443,12 +458,14 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         radiance_lr = 0.0
     history = []
     t0 = time.time()
+    overflow = None
     for it in range(first_iter + 1, iterations + 1):
         cam = camera_for_iter(cams, it, seed)
         xyz_lr = float(xyz_sched(it))
         state, opt_state, env_state, tb = step_fn(
             state, opt_state, env_state, bake, cam, float(it - first_iter),
             xyz_lr, radiance_lr)
+        overflow = _any_overflow(overflow, tb)
         # train.py:211-214: zero the radiance lr at the first %1000
         # boundary
         if it % 1000 == 0:
@@ -461,11 +478,12 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
                      "psnr_pbr": float(tb["psnr_pbr"]),
                      "loss": float(tb["loss"]),
                      "elapsed": time.time() - t0, **extras}
-            if _overflowed(entry, tb, it) and auto_grow_instances:
+            if _overflowed(entry, overflow, it) and auto_grow_instances:
                 raster_cfg = _grow_instance_cap(raster_cfg)
                 step_fn = make_svgss_train_step(
                     opt, raster_cfg, bg, sh_degree=sh_degree, lrs=lrs,
                     device=device)
+            overflow = None
             history.append(entry)
             if callback:
                 callback(entry, state, env_state)
