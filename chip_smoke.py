@@ -54,7 +54,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               saturates in its first chunk, padding rows among real ones,
               alpha clamped at 0.99, u and v past their clamps; CA/CV
               14/0, 13/13, 16/16 and 3/4) at every tile the wrappers take
-              (32, 24, 16 and 8).
+              (32, 24, 16 and 8), and on the near-clamp inputs
+              (blend_near_clamp_inputs: pixels that take pairs with alpha
+              just below 0.99), where B3 is held to its plain version in
+              float64 as at the recipe's size (35).
   5. parity   the small scene rendered forward and backward on the card
               (kernels) and on the CPU (plain versions): image and
               gradients agree.
@@ -327,13 +330,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  B6 or B9).  A [recipe] line: each part's seconds and
                  peak memory, ms a step, the alive counts and the passes,
                  the bake's grid, exhausted share and seconds, the PSNRs.
+  35. recipe size (run after 11, where torch.profiler keeps its device
+                 records) the bench generator at the recipe's size:
+                 264,865 surfels in 524,288 rows, binned as the recipe
+                 bins (strip 8, counting binner, snug cap); one stage-1
+                 step and one S = 64 step on a synthetic bake of every
+                 row with a 32 x 64 env, each with launch counts reset
+                 just before and read just after.  B1/B2 equal to their
+                 plain versions; B3 within TOL_IMG and 1e-5 of its plain
+                 version evaluated in float64 (the float32 plain version
+                 drifts past that there: PERF.md), its n_contrib flips
+                 within check_image's flip rule; B4 within TOL_ROWS; B7's
+                 forward within TOL_ENV_FWD and its backward within
+                 TOL_ENV_BWD of its plain version (a float64 sum).
+                 [split] lines: every pixel or texel where a float32
+                 version and float64 part, with its class.  Rows
+                 ``*_recipe_size`` with each step's ms and peak memory.
 
 With --recipe-tables RUN the script builds the kernels and runs only the
 recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
 checkpoint, B1-B4 and B7 on an S = 64 step of its newest stage-2
 checkpoint, B8 on the fullest chunk of a bake of that checkpoint's
-surfels, each against its plain version and timed with its bound; the
-steps' ms and peak memory, the bake's; with --profile DIR, the profiles
+surfels, each against its plain version (B3's image against its plain
+version in float64, as in phase 35, with [split] lines) and timed with
+its bound; the steps' ms and peak memory, the bake's; with --profile
+DIR, the profiles
 of three steps of each stage and of the bake; and ``[recipe-scale]``:
 the stage-1 checkpoint's test PSNR at eval_nvs's scale 4, at scale 1,
 pooled from scale 1, and at scale 4 with the screen-space dilation cut
@@ -348,7 +369,7 @@ The output ends with three lines: the kernels JSON, the nvidia-smi line
 (the card's name and power limit), and {"ok": true, "device": {...}}.
 Each kernel row of the JSON also carries ``parallel_launches`` and
 ``recipe_launches``: its launches on each path of phases 32-33 and in
-each part of phase 34.
+each part of phase 34 (the rows of phase 35 too).
 """
 
 from __future__ import annotations
@@ -463,14 +484,21 @@ def device_ms(fn, reps=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.02)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.02)
-    return device_by_name(prof, reps)[:3]
+    for attempt in range(3):        # a window may lose all of its records
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        try:
+            return device_by_name(prof, reps)[:3]
+        except AssertionError:
+            if attempt == 2:
+                raise
+            log(f"[timing] the profiler recorded no device operation of "
+                f"{reps} calls; profiling again")
 
 
 def device_by_name(prof, reps):
@@ -755,15 +783,167 @@ def compare_binning(calls):
     compare_instances(*calls["compute_instances"], "captured")
 
 
-def compare_blend(calls, label, hdr=False):
+def compare_blend(calls, label, hdr=False, exact=False):
     """B3, B4 kernel vs plain on the captured inputs; returns max errors.
     (The captured logT image is a saved autograd output: no_grad keeps the
     plain versions from recording a graph on it.)  ``hdr``: a render whose
-    features are lit by an HDR light (``check_image``'s ``feature_max``)."""
+    features are lit by an HDR light (``check_image``'s ``feature_max``).
+    ``exact`` (the recipe's size): B3's image is held to its plain version
+    evaluated in float64 (``blend_float64``), and its n_contrib flips to
+    ``check_image``'s flip rule with the largest slab feature."""
     import torch
 
     with torch.no_grad():
-        return _compare_blend(calls, label, hdr)
+        return _compare_blend(calls, label, hdr, exact)
+
+
+def blend_float64(a, kw):
+    """B3's plain version evaluated in float64 on a captured call's
+    arguments ``a``, ``kw`` (the slab cast to float64; the thresholds are
+    the kernels' float32 constants): its image, float64."""
+    import torch
+
+    from svgir_tpu_torch.ops import blend_pallas_strip as P
+    with torch.no_grad():
+        return P.blend_forward_plain(a[0].double(), *a[1:],
+                                     **{**kw, "emit_wsum": False})[0]
+
+
+def split_blend(calls, label, card, pairs=6):
+    """B3 and its float32 plain version, each against the plain version in
+    float64 (``blend_float64``), at every pixel where kernel and float32
+    plain version differ past ``check_image``'s limits, where the kernel
+    lies past them from float64, or where kernel and float64 blend another
+    number of pairs.  Each such pixel
+    is logged with its logT and its worst channel sum (kernel - float64,
+    float32 plain - float64) and its three n_contrib, in one class: (a)
+    the kernel lies past the limit from float64; (b) it lies within it,
+    and the float32 plain version farther or on the other side; (c) the
+    kernel blends
+    another number of pairs than float64 (a pair at alpha 1/255, or the
+    gate at log 1e-4), which ``check_image``'s flip rule judges.  For the
+    ``pairs`` pixels of class (a) first, then the largest logT gaps, each
+    pair the tile tests there: log1p(-alpha) as the kernel takes it (the
+    kernel on a slab that holds that pair's row alone) beside the float32
+    and float64 values, with alpha and the power's cancellation (the
+    quadratic form's terms over |power|).  Returns {class: pixels}."""
+    import torch
+
+    from svgir_tpu_torch.kernels import blend as K
+    from svgir_tpu_torch.ops import blend_pallas_strip as P
+    from svgir_tpu_torch.ops.common import ALPHA_MIN, LOG_T_EPS
+
+    a, kw = calls["blend_forward"]
+    slab, t_start, t_count = a
+    n = kw["ca"] + kw["cv"]
+    with torch.no_grad():
+        ki, ke, _ = K.blend_forward(*a, **kw)
+        pi = P.blend_forward_plain(*a, **kw)[0]
+        di = blend_float64(a, kw)
+        ki, pi = ki.double(), pi.double()
+    fmax = float(slab[:, 12:].abs().max())
+    step = -math.log1p(-1.0 / 255.0)
+
+    def over(ref):
+        """|ki - ref| over check_image's limit: [1 + n, H, W], logT first."""
+        lim = torch.where(ref[n] < LOG_T_EPS, TOL_LOGT_SAT, 1e-5)
+        o = [((ki[n] - ref[n]).abs() / lim)[None]]
+        if n:
+            o.append((ki[:n] - ref[:n]).abs()
+                     / (TOL_IMG * (1 + ref[:n].abs())))
+        return torch.cat(o)
+    od = over(di)
+    ov = torch.maximum(over(pi), od)         # against either reference
+    past = od.amax(0) > 1                    # the kernel, from float64
+    # each pixel's worst quantity (0: logT; 1 + c: channel c)
+    worst = torch.where(past, od.argmax(0), ov.argmax(0))
+    bad = torch.nonzero((ov.amax(0) > 1)
+                        | (ki[n + 1] != di[n + 1])).tolist()
+    gap = (ki[n] - pi[n]).abs()
+    classes, rows = {"a": 0, "b": 0, "c": 0}, []
+    for y, x in bad:
+        nk, npl, nd = (int(t[n + 1, y, x]) for t in (ki, pi, di))
+        ch = int(worst[y, x]) - 1
+        at = n if ch < 0 else ch            # the worst quantity's channel
+        ek, ep = float(ki[at, y, x] - di[at, y, x]), \
+            float(pi[at, y, x] - di[at, y, x])
+        if ch < 0:
+            lim = TOL_LOGT_SAT if float(di[n, y, x]) < LOG_T_EPS else 1e-5
+        else:
+            lim = TOL_IMG * (1 + abs(float(di[ch, y, x])))
+        if nk != nd:
+            cls = "c"
+            pf = di[:n, y, x].abs()
+            within = (abs(float(ki[n, y, x] - di[n, y, x]))
+                      <= step * 1.01 + 1e-5) and bool(
+                ((ki[:n, y, x] - di[:n, y, x]).abs()
+                 <= (fmax + pf) / 255.0 + TOL_IMG * (1 + pf)).all())
+        else:
+            cls = "a" if bool(past[y, x]) else "b"
+            within = cls == "b"
+        classes[cls] += 1
+        rows.append((cls, -float(gap[y, x]), y, x))
+        log(f"[split] {label} B3 pixel ({y}, {x}), "
+            + ("logT" if ch < 0 else f"channel {ch}")
+            + f": kernel - float64 {ek:.4g}, float32 plain - float64 "
+            f"{ep:.4g} (limit {lim:.3g}); logT {float(di[n, y, x]):.7g}; "
+            f"n_contrib kernel {nk}, plain {npl}, float64 {nd}; class "
+            f"({cls}), " + ("within" if within else "PAST")
+            + (" the flip rule" if cls == "c" else " the limit from "
+               "float64"))
+    tile, gx, chunk = kw["tile"], kw["grid_x"], kw["chunk"]
+    shown = [r for c in "acb" for r in sorted(r for r in rows
+                                              if r[0] == c)[:pairs]]
+    for _, _, y, x in shown:
+        t = (y // tile) * gx + x // tile
+        r0 = int(t_start[t])
+        s = slab[r0:r0 + int(ke[t]) * chunk]
+        px = torch.full((1, 1, 1), float(x), device=slab.device)
+        py = torch.full((1, 1, 1), float(y), device=slab.device)
+        with torch.no_grad():
+            m32 = P._chunk_math(s[None], px, py)
+            m64 = P._chunk_math(s[None].double(), px, py)
+        edge = (m64["power"] <= 0) & ((m64["alpha"] - ALPHA_MIN).abs()
+                                      < 1e-4 * ALPHA_MIN)
+        tests = torch.nonzero((m32["ok"] | m64["ok"] | edge)[0, 0])[:, 0]
+        sums, quiet = [0.0, 0.0], 0
+        for i in tests.tolist():
+            one = torch.zeros_like(slab)
+            one[r0 + i] = slab[r0 + i]
+            with torch.no_grad():
+                lk = float(K.blend_forward(one, t_start, t_count,
+                                           **kw)[0][n, y, x])
+            l32, l64 = (float(m["loga"][0, 0, i]) for m in (m32, m64))
+            p32, p64 = (float(m["power"][0, 0, i]) for m in (m32, m64))
+            a32, a64 = (float(m["alpha"][0, 0, i]) for m in (m32, m64))
+            r = s[i].double()
+            dx, dy = float(m64["dx"][0, 0, i]), float(m64["dy"][0, 0, i])
+            terms = 0.5 * (abs(float(r[2])) * dx * dx
+                           + abs(float(r[4])) * dy * dy) \
+                + abs(float(r[3]) * dx * dy)
+            sums[0] += lk - l64
+            sums[1] += l32 - l64
+            at_edge = abs(a64 - ALPHA_MIN) < 1e-4 * ALPHA_MIN
+            if max(abs(lk - l64), abs(l32 - l64)) < 2e-7 and not at_edge:
+                quiet += 1
+                continue
+            log(f"[split] {label} ({y}, {x}) row {r0 + i}: power "
+                f"{p32:.9g} / {p64:.12g} (terms / |power| "
+                f"{terms / max(abs(p64), 1e-30):.3g}), alpha {a32:.9g} / "
+                f"{a64:.12g}" + (" AT 1/255" if at_edge else "")
+                + f"; log1p(-alpha) kernel {lk:.9g}, float32 {l32:.9g}, "
+                f"float64 {l64:.12g}")
+        log(f"[split] {label} ({y}, {x}): {len(tests)} pairs ({quiet} "
+            "within 2e-7 of float64 in both, not shown); summed "
+            f"per-pair error against float64: kernel {sums[0]:.4g}, "
+            f"float32 plain {sums[1]:.4g}; the rest of kernel - float64 "
+            f"(its running sum) "
+            f"{float(ki[n, y, x] - di[n, y, x]) - sums[0]:.4g}")
+    log(f"[split] {label} B3: {len(bad)} pixels where the kernel lies past "
+        "the limits from its float32 plain version or from float64, or "
+        "blends another number of pairs than float64; by class "
+        f"{classes}; largest slab feature {fmax:.4g}; card: {card}")
+    return classes
 
 
 def check_image(ki, pi, nch, tag, feature_max=None):
@@ -848,7 +1028,7 @@ def check_rows(kd, pd, ca, tag):
     return err
 
 
-def _compare_blend(calls, label, hdr=False):
+def _compare_blend(calls, label, hdr=False, exact=False):
     import torch
 
     from svgir_tpu_torch.kernels import blend as K
@@ -862,18 +1042,40 @@ def _compare_blend(calls, label, hdr=False):
     if not torch.equal(ke, pe):
         raise AssertionError(f"B3 [{label}] eff differs: "
                              f"{int((ke != pe).sum())} tiles")
-    fmax = float(a[0][:, 12:].abs().max()) if hdr else None
-    err_img, err_lt, nc_bad = check_image(ki, pi, ca + cv, f"B3 [{label}]",
-                                          fmax)
+    fmax = float(a[0][:, 12:].abs().max()) if hdr or exact else None
+    ref = blend_float64(a, kw) if exact else pi
+    err_img, err_lt, nc_bad = check_image(
+        ki, ref, ca + cv,
+        f"B3 [{label}]" + (" against float64" if exact else ""), fmax)
     err_w = 0.0
     if kwsum is not None:
         err_w = max_err_rel(kwsum, pwsum)
         if err_w > TOL_ROWS:
             raise AssertionError(f"B3 [{label}] weight sums differ: {err_w}")
+    against = ""
+    if exact:
+        # away from the n_contrib flips, which the flip rule judged: the
+        # kernel's and the float32 plain version's errors from float64
+        from svgir_tpu_torch.ops.common import LOG_T_EPS
+        n = ca + cv
+        live = ref[n] >= LOG_T_EPS
+
+        def off(x):
+            keep = x[n + 1] == ref[n + 1]
+            e_img = float((x[:n] - ref[:n])[:, keep].abs().max()) \
+                if n and bool(keep.any()) else 0.0
+            e_lt = float((x[n] - ref[n])[keep & live].abs().max()) \
+                if bool((keep & live).any()) else 0.0
+            return e_img, e_lt
+        err_img, err_lt = off(ki)
+        p_img, p_lt = off(pi)
+        against = (f" against float64, logT where unsaturated, away from "
+                   f"its {nc_bad} n_contrib flips (the float32 plain "
+                   f"version: img {p_img:.3g}, logT {p_lt:.3g})")
     err3 = max(err_img, err_lt, err_w)
     if "blend_backward" not in calls:            # a forward-only render
         log(f"[kernels] {label}: B3 max|err| img {err_img:.3g} logT "
-            f"{err_lt:.3g}; n_contrib mismatches {nc_bad}"
+            f"{err_lt:.3g}{against}; n_contrib mismatches {nc_bad}"
             + (f" (largest instance feature {fmax:.4g})" if hdr else ""))
         return err3, None
 
@@ -882,28 +1084,28 @@ def _compare_blend(calls, label, hdr=False):
     pd = P.blend_backward_plain(*b, **bkw)
     torch.cuda.synchronize()
     err4 = check_rows(kd, pd, ca, f"B4 [{label}]")
-    log(f"[kernels] {label}: B3 max|err| img {err_img:.3g} logT {err_lt:.3g} "
-        f"wsum(rel) {err_w:.3g}; B4 max|err| {err4:.3g}; "
+    log(f"[kernels] {label}: B3 max|err| img {err_img:.3g} logT {err_lt:.3g}"
+        f"{against} wsum(rel) {err_w:.3g}; B4 max|err| {err4:.3g}; "
         f"n_contrib mismatches {nc_bad}")
     return err3, err4
 
 
-def blend_edge_calls(inputs, name, tile, dev):
-    """The blend's edge inputs (tests/torch_kernel_inputs.py) on the card
-    as captured calls of B3/B4 and of B5/B6: the backward's eff, logT and
-    meta from the plain forward, its cotangents from the inputs."""
+def blend_edge_calls(d, dev):
+    """Blend inputs ``d`` of tests/torch_kernel_inputs.py (the edge inputs,
+    the near-clamp ones) on the card as captured calls of B3/B4 and of
+    B5/B6: the backward's eff, logT and meta from the plain forward, its
+    cotangents from the inputs."""
     import torch
 
     from svgir_tpu_torch.ops import blend_pallas as BP
     from svgir_tpu_torch.ops import blend_pallas_strip as BS
 
-    d = inputs.blend_edge_inputs(name, tile=tile)
     t = {k: torch.from_numpy(v).to(dev) for k, v in d.items()
          if hasattr(v, "shape")}
     kw = {k: d[k] for k in ("ca", "cv", "grid_x", "grid_y", "tile",
                             "chunk")}
     nch = d["ca"] + d["cv"]
-    lay = dict(grid_x=d["grid_x"], grid_y=d["grid_y"], tile=tile)
+    lay = dict(grid_x=d["grid_x"], grid_y=d["grid_y"], tile=d["tile"])
     a = (t["slab"], t["tile_start"], t["tile_count"])
     with torch.no_grad():
         img, eff, _ = BS.blend_forward_plain(*a, **kw)
@@ -1251,6 +1453,69 @@ def library_counts_carry(calls):
     return fn
 
 
+def b1_yardstick(calls):
+    """``library_counts_carry`` of the captured calls, after a check that
+    it computes what B1 computes on them."""
+    import torch
+
+    from svgir_tpu_torch.kernels import binning as K
+    a, kw = calls["compute_counts"]
+    lib = library_counts_carry(calls)
+    lc, lcar = lib()
+    kc, kcar = K.counts(*a, grid_x=kw["grid_x"], grid_y=kw["grid_y"],
+                        gauss_chunk=kw.get("gauss_chunk", 256))
+    if not (torch.equal(lc, kc) and torch.equal(lcar, kcar)):
+        raise AssertionError("the B1 yardstick computes another function")
+    return lib
+
+
+def kernel_calls(calls):
+    """Zero-argument calls of each kernel captured in ``calls`` (B1-B4,
+    B7): {name: (its wrapper, its plain version, its library yardstick or
+    None)}, B1's yardstick checked against B1."""
+    from svgir_tpu_torch.kernels import binning as KB
+    from svgir_tpu_torch.kernels import blend as KBL
+    from svgir_tpu_torch.kernels import env_lookup as KE
+    from svgir_tpu_torch.ops import binning_pallas as BP
+    from svgir_tpu_torch.ops import blend_pallas_strip as BS
+    from svgir_tpu_torch.ops import env_lookup_pallas as EP
+
+    out = {}
+    if "compute_counts" in calls:
+        a1, kw1 = calls["compute_counts"]
+        kk1 = dict(grid_x=kw1["grid_x"], grid_y=kw1["grid_y"],
+                   gauss_chunk=kw1.get("gauss_chunk", 256))
+        a2, kw2 = calls["compute_instances"]
+        out["binning_counts"] = (lambda: KB.counts(*a1, **kk1),
+                                 lambda: BP.counts_plain(*a1, **kk1),
+                                 b1_yardstick(calls))
+        out["binning_instances"] = (lambda: KB.instances(*a2, **kw2),
+                                    lambda: BP.instances_plain(*a2, **kw2),
+                                    None)
+    if "blend_forward" in calls:
+        a3, kw3 = calls["blend_forward"]
+        out["blend_forward"] = (lambda: KBL.blend_forward(*a3, **kw3),
+                                lambda: BS.blend_forward_plain(*a3, **kw3),
+                                None)
+    if "blend_backward" in calls:
+        a4, kw4 = calls["blend_backward"]
+        out["blend_backward"] = (lambda: KBL.blend_backward(*a4, **kw4),
+                                 lambda: BS.blend_backward_plain(*a4, **kw4),
+                                 None)
+    if "env_lookup_forward" in calls:
+        fa, _ = calls["env_lookup_forward"]
+        out["env_lookup_forward"] = (lambda: KE.env_lookup_forward(*fa),
+                                     lambda: EP.env_lookup_forward_plain(*fa),
+                                     library_env_forward(fa))
+    if "env_lookup_backward" in calls:
+        ba, bkw = calls["env_lookup_backward"]
+        out["env_lookup_backward"] = (
+            lambda: KE.env_lookup_backward(*ba, **bkw),
+            lambda: EP.env_lookup_backward_plain(*ba, **bkw),
+            library_env_backward(calls))
+    return out
+
+
 def profile_step(fn, out_dir, name="chip_smoke_profile.txt", steps=3):
     """torch.profiler table of ``steps`` train steps (after a warm-up),
     sorted by device time, written to ``out_dir/name``, with the device
@@ -1391,6 +1656,54 @@ def compare_env_backward(u, v, g, h, w, label):
     if eb > TOL_ENV_BWD * max(float(pb.abs().max()), 1e-30):
         raise AssertionError(f"B7 [{label}] backward differs by {eb}")
     return eb
+
+
+def split_env_backward(calls, label, card):
+    """B7's backward on a captured step against the plain version
+    evaluated in float64 (coordinates and cotangents cast), beside its
+    plain version (a float64 sum of float32 taps) and the float32 running
+    sum of the same taps (``index_add_`` in float32, the plain version's
+    sum before it summed in float64): each one's largest error as a share
+    of max |d_env|, and at the texels where kernel and float32 sum differ
+    past TOL_ENV_BWD, both against float64 there.  Returns the kernel's
+    and the float32 sum's largest errors against float64."""
+    import torch
+
+    from svgir_tpu_torch.kernels import env_lookup as K
+    from svgir_tpu_torch.ops import env_lookup_pallas as P
+
+    (u, v, g), kw = calls["env_lookup_backward"]
+    h, w = kw["h"], kw["w"]
+    with torch.no_grad():
+        exact = P.env_lookup_backward_plain(u.double(), v.double(),
+                                            g.double(), h=h, w=w)
+        kb = K.env_lookup_backward(u, v, g, h=h, w=w).double()
+        pb = P.env_lookup_backward_plain(u, v, g, h=h, w=w).double()
+        su, wu = P._taps(u, w)
+        sv, wv = P._taps(v, h)
+        base = sv * w + su
+        wu, wv = wu[:, None], wv[:, None]
+        a0, a1 = (1 - wu) * g, wu * g
+        f32 = g.new_zeros(h * w, g.shape[1])
+        for idx, val in ((base, (1 - wv) * a0), (base + 1, (1 - wv) * a1),
+                         (base + w, wv * a0), (base + w + 1, wv * a1)):
+            f32.index_add_(0, idx, val)
+        f32 = f32.reshape(h, w, -1).double()
+    scale = max(float(exact.abs().max()), 1e-30)
+    ek, ep, ef = (float((x - exact).abs().max()) / scale
+                  for x in (kb, pb, f32))
+    bad = (kb - f32).abs() > TOL_ENV_BWD * float(f32.abs().max())
+    nb = int(bad.sum())
+    at = "" if not nb else (
+        f"; at the {nb} texel values where kernel and float32 sum differ "
+        "past TOL_ENV_BWD: kernel - float64 up to "
+        f"{float((kb - exact)[bad].abs().max()) / scale:.3g}, float32 sum "
+        f"- float64 up to {float((f32 - exact)[bad].abs().max()) / scale:.3g}")
+    log(f"[split] {label} B7 backward over {u.numel()} queries, against "
+        f"float64 (shares of max |d_env| {scale:.6g}): kernel {ek:.3g}, "
+        f"plain version (float64 sum) {ep:.3g}, float32 running sum "
+        f"{ef:.3g}{at}; card: {card}")
+    return ek, ef
 
 
 # Float operations of B7 per query: each of the two coordinates' taps
@@ -1719,7 +2032,8 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, parents=(),
     if profile_dir:
         profile_step(lambda: step3(*s3_args), profile_dir,
                      "chip_smoke_profile_stage2_s64.txt")
-    # B7 at the recipe's shape: the S = 64 step's lookups on its env
+    # B7 on the bench scene's S = 64 step (50,000 rows x 64: 3.2M
+    # queries, a tenth of the recipe's; phase 35 runs the recipe's size)
     with Capture() as cap64:
         step3(*s3_args)
     torch.cuda.synchronize()
@@ -1748,8 +2062,9 @@ def run_bake(state, cam, opt, cfg, bg, card, dev, parents=(),
             "replaces": "svgir_tpu/ops/env_lookup_pallas.py:"
             + ("63" if i == 0 else "76"), "launches": launches[name],
             "max_abs_err": e7[i], **t, "bound_ms": bd[0], "bound_by": bd[1]})
-        log(f"[bake timing] {name} at the recipe's shape ({env_label}, "
-            f"{fa64[1].numel()} queries): " + fmt_times(t, "grid_sample")
+        log(f"[bake timing] {name} on the bench scene's 50,000 rows "
+            f"({env_label}, {fa64[1].numel()} queries): "
+            + fmt_times(t, "grid_sample")
             + f", bound {bd[0]:.4f} ms by {bd[1]}; {launches[name]} "
             f"launches in the bake and {steps} steps; card: {card}")
     times = parent_env_backward(parents, ba64, bkw64, env_label, card)
@@ -4682,6 +4997,173 @@ def run_recipe(card, dev):
     return parts
 
 
+# Phase 35: the recipe's size in every run.  The bench scene's generator
+# with the alive surfels and rows of the recipe's chkpnt3000 (PERF.md §5).
+RECIPE_ALIVE = 264_865
+RECIPE_ROWS = 524_288
+
+
+def run_recipe_size(card, dev):
+    """Phase 35: B1-B4 on a stage-1 step, then B1-B4 and B7 on an S = 64
+    step, at the recipe's size: ``bench_scene`` with RECIPE_ALIVE surfels in
+    RECIPE_ROWS rows, binned as the recipe bins (strip 8, the counting
+    binner, a snug cap), and for the S = 64 step a synthetic bake of every
+    row (``stage2_inputs``) and a 32 x 64 env.  Each step runs once with the
+    launch counts set to 0 just before it and read just after; each kernel
+    is held to its plain version on that step's inputs (B3's image to the
+    plain version in float64, ``compare_blend(exact=True)``; ``split_blend``
+    and ``split_env_backward`` log where the float32 versions part), timed
+    beside its bound and library yardstick; each step's ms and peak
+    memory.  Returns the kernels-JSON rows, named ``*_recipe_size``."""
+    import torch
+
+    from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
+    from svgir_tpu_torch.train import optim, trainer
+    from svgir_tpu_torch.train.cap_probe import snug_instance_cap
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    state, cam = bench_scene(dev, n=RECIPE_ALIVE, capacity=RECIPE_ROWS)
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=dev)
+    cfg = RasterConfig(max_instances=snug_instance_cap(
+        state["params"], [cam], RasterConfig(), alive=state["alive"]))
+    log(f"[recipe-size] {RECIPE_ALIVE} surfels in {RECIPE_ROWS} rows, "
+        f"{cam.width}x{cam.height}, strip {cfg.strip}, {cfg.binner} "
+        f"binner, cap {cfg.max_instances}; card: {card}")
+    report = []
+
+    def row(name, suffix, t, bnd, err, launched, **extra):
+        report.append({
+            "name": f"{name}{suffix}_recipe_size", "route": "cuda",
+            "source": f"svgir_tpu_torch/csrc/{SOURCES[name]}",
+            "replaces": f"svgir_tpu/ops/{REPLACES[name]}",
+            "launches": launched[name], "max_abs_err": err, **t,
+            "bound_ms": bnd[0], "bound_by": bnd[1], **extra})
+        log(f"[recipe-size] {name}{suffix}: " + fmt_times(t, "library")
+            + f", bound {bnd[0]:.4f} ms by {bnd[1]}, max|err| {err:.3g}; "
+            f"{launched[name]} launches in the step; card: {card}")
+
+    def held_step(fn, label, names):
+        """One step, counted and captured; B1/B2 equal to their plain
+        versions, B3/B4 held and split; returns (calls, launches, bounds,
+        B3's and B4's errors)."""
+        with Capture() as cap:
+            _, launched = counted(fn, f"recipe-size {label}",
+                                  [(k, 1) for k in names])
+        calls = cap.calls
+        compare_binning(calls)
+        split_blend(calls, f"recipe size, {label}", card)
+        e3, e4 = compare_blend(calls, f"recipe size, {label}", exact=True)
+        bnd = bounds(calls)
+        wk = bnd["blend_work"]
+        log(f"[recipe-size] {label}: {int(calls['compute_instances'][0][7])}"
+            f" instances; blend work {wk['rows']} real rows, {wk['pairs']} "
+            f"pairs, {wk['ok']} pass the footprint test, {wk['gated']} "
+            "blend")
+        return calls, launched, bnd, e3, e4
+
+    def rows(calls, launched, bnd, errs, step, suffix=""):
+        kw3 = calls["blend_forward"][1]
+        with torch.no_grad():
+            for name, (kfn, pfn, lfn) in kernel_calls(calls).items():
+                blend = name.startswith("blend")
+                extra = dict(step_ms=step[0], step_peak_gib=step[1])
+                if blend:
+                    extra.update(ca=kw3["ca"], cv=kw3["cv"])
+                if name == "blend_forward":
+                    extra["oracle"] = "plain version in float64"
+                elif name == "binning_counts":
+                    extra["library"] = "bincount + cumsums, counts and carry"
+                elif name.startswith("env"):
+                    extra["queries"] = calls[name][0][1].numel()
+                row(name, suffix if blend else "", timings(kfn, pfn, lfn),
+                    bnd[name], errs[name], launched, **extra)
+
+    # ---- stage 1 -------------------------------------------------------
+    step1 = trainer.make_train_step(opt, cfg, bg,
+                                    lrs=optim.group_lrs(opt, 1.0),
+                                    device=dev)
+    args1 = (state, optim.adam_init(state["params"]), cam, 1.0, 1.6e-4)
+    cost = peak_ms(lambda: step1(*args1), "stage-1 step", card, "recipe-size")
+    c1, l1, bnd1, e3, e4 = held_step(lambda: step1(*args1), "stage-1 step",
+                                     STAGE1_KERNELS)
+    rows(c1, l1, bnd1, dict(binning_counts=0.0, binning_instances=0.0,
+                            blend_forward=e3, blend_backward=e4), cost)
+    del c1, args1
+
+    # ---- S = 64 --------------------------------------------------------
+    s2_state, bake, env = stage2_inputs(state, dev, samples=BAKE_SAMPLES,
+                                        env_h=BAKE_ENV_H)
+    step2 = trainer.make_svgss_train_step(
+        opt, cfg, bg, lrs=optim.group_lrs(opt, 1.0, use_pbr=True),
+        device=dev)
+    args2 = ({**s2_state, "stats": state["stats"]},
+             optim.adam_init(s2_state["params"]), env, bake, cam, 100.0,
+             1e-5, opt.radiance_lr)
+    label = f"S = {BAKE_SAMPLES} step"
+    cost = peak_ms(lambda: step2(*args2), label, card, "recipe-size", reps=5)
+    c2, l2, bnd2, e3, e4 = held_step(lambda: step2(*args2), label,
+                                     STAGE2_KERNELS)
+    e7 = compare_env(c2, f"recipe size, {label}")
+    split_env_backward(c2, f"recipe size, {label}", card)
+    for k in ("compute_counts", "compute_instances"):   # rows of stage 1
+        del c2[k]
+    rows(c2, l2, {**bnd2, **env_bounds(c2["env_lookup_forward"][0])},
+         dict(blend_forward=e3, blend_backward=e4, env_lookup_forward=e7[0],
+              env_lookup_backward=e7[1]), cost, f"_s{BAKE_SAMPLES}")
+    log(f"[recipe-size] {time.time() - t_phase:.1f} s; card: {card}")
+    return report
+
+
+# Each kernel's source and the TPU kernel it replaces, for the JSON rows
+# of the recipe's size.
+SOURCES = {"binning_counts": "binning.cu", "binning_instances": "binning.cu",
+           "blend_forward": "blend_forward.cu",
+           "blend_backward": "blend_backward.cu",
+           "env_lookup_forward": "env_lookup.cu",
+           "env_lookup_backward": "env_lookup.cu", "march": "march.cu"}
+REPLACES = {"binning_counts": "binning_pallas.py:44",
+            "binning_instances": "binning_pallas.py:114",
+            "blend_forward": "blend_pallas_strip.py:51",
+            "blend_backward": "blend_pallas_strip.py:267",
+            "env_lookup_forward": "env_lookup_pallas.py:63",
+            "env_lookup_backward": "env_lookup_pallas.py:76",
+            "march": "march_pallas.py:66"}
+
+
+def counted(fn, label, at_least):
+    """fn() with the kernels' launch counts set to 0 just before it, read
+    just after; fails if a kernel of ``at_least`` ((name, count) pairs) was
+    launched too few times.  Returns (fn's result, the counts)."""
+    import torch
+
+    from svgir_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = kernels.launches()
+    check_launches(launched, label, at_least=at_least)
+    return out, launched
+
+
+def peak_ms(fn, label, card, tag="recipe-table", reps=10):
+    """Logs a step's ``fn`` median wall time (each call ended by a
+    synchronize) and its peak device memory; returns both."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = host_ms(fn, reps=reps, warmup=1)
+    log(f"[{tag}] {label}: {ms:.3f} ms a step (median of {reps}, ended by "
+        f"a synchronize), peak {peak:.3f} GiB; card: {card}")
+    return ms, peak
+
+
 def recipe_tables(run, card, dev, profile_dir=None):
     """``--recipe-tables RUN``: the kernels at the recipe's scale, on the
     newest checkpoints of a cli.full_schedule run in RUN (its
@@ -4701,19 +5183,13 @@ def recipe_tables(run, card, dev, profile_dir=None):
 
     import torch
 
-    from svgir_tpu_torch import kernels
-
     from svgir_tpu_torch.cli import full_schedule as FS
     from svgir_tpu_torch.cli import train as CLI
     from svgir_tpu_torch.config import (OptimizationConfig, RasterConfig,
                                         from_args)
     from svgir_tpu_torch.data.readers import load_scene
-    from svgir_tpu_torch.kernels import binning as KB
     from svgir_tpu_torch.kernels import blend as KBL
-    from svgir_tpu_torch.kernels import env_lookup as KE
-    from svgir_tpu_torch.ops import binning_pallas as BP
     from svgir_tpu_torch.ops import blend_pallas_strip as BS
-    from svgir_tpu_torch.ops import env_lookup_pallas as EP
     from svgir_tpu_torch.ops import grid_tracer as GT
     from svgir_tpu_torch.ops import march_pallas as MP
     from svgir_tpu_torch.train import checkpoint as CK
@@ -4733,18 +5209,6 @@ def recipe_tables(run, card, dev, profile_dir=None):
     cams = stage_cameras([trainer.strip_meta(c)
                           for c in scene.train_cameras[:3]], device=dev)
     bg = torch.zeros(3, device=dev)
-    sources = {"binning_counts": "binning.cu", "binning_instances":
-               "binning.cu", "blend_forward": "blend_forward.cu",
-               "blend_backward": "blend_backward.cu",
-               "env_lookup_forward": "env_lookup.cu",
-               "env_lookup_backward": "env_lookup.cu", "march": "march.cu"}
-    replaces = {"binning_counts": "binning_pallas.py:44",
-                "binning_instances": "binning_pallas.py:114",
-                "blend_forward": "blend_pallas_strip.py:51",
-                "blend_backward": "blend_pallas_strip.py:267",
-                "env_lookup_forward": "env_lookup_pallas.py:63",
-                "env_lookup_backward": "env_lookup_pallas.py:76",
-                "march": "march_pallas.py:66"}
     report = []
     sched_path = os.path.join(run, "schedule.json")
     disagree = {}       # kernel name -> what its comparison said
@@ -4766,8 +5230,8 @@ def recipe_tables(run, card, dev, profile_dir=None):
             "name": f"{name}_recipe_"
             + re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
             "route": "cuda",
-            "source": f"svgir_tpu_torch/csrc/{sources[name]}",
-            "replaces": f"svgir_tpu/ops/{replaces[name]}",
+            "source": f"svgir_tpu_torch/csrc/{SOURCES[name]}",
+            "replaces": f"svgir_tpu/ops/{REPLACES[name]}",
             "launches": launched[name], "launches_in": per,
             "max_abs_err": err, **t,
             "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -4775,63 +5239,17 @@ def recipe_tables(run, card, dev, profile_dir=None):
             "recipe_run_launches_from": sched_path,
             **({"disagrees": disagree[name]} if name in disagree else {}),
             **extra})
-        log(f"[recipe-table] {name}, {label}: " + fmt_times(t)
+        log(f"[recipe-table] {name}, {label}: " + fmt_times(t, "library")
             + f", bound {bnd[0]:.4f} ms by {bnd[1]}, max|err| {err:.3g}; "
             f"{launched[name]} launches in {per} (this run); "
             f"{per_run.get(name, 0)} in the schedule of {sched_path}; "
             f"card: {card}")
 
-    def counted(fn, label, at_least):
-        """fn() with the launch counts set to 0 just before it, read just
-        after; fails if a kernel of ``at_least`` was launched too few
-        times."""
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        launched = kernels.launches()
-        check_launches(launched, label, at_least=at_least)
-        return out, launched
-
-    def peak_ms(fn, label):
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = host_ms(fn, reps=10, warmup=1)
-        log(f"[recipe-table] {label}: {ms:.3f} ms a step (median of 10, "
-            f"ended by a synchronize), peak {peak:.3f} GiB; card: {card}")
-
-    def against_float64(calls, label):
-        """B3 and its plain version against the plain version in float64,
-        on the pixels where all three blend the same pairs and are not
-        saturated: which of the two lies further from exact."""
-        from svgir_tpu_torch.ops.common import LOG_T_EPS
-        a3, kw3 = calls["blend_forward"]
-        n = kw3["ca"] + kw3["cv"]
-        with torch.no_grad():
-            ki = KBL.blend_forward(*a3, **kw3)[0].double()
-            pi = BS.blend_forward_plain(*a3, **kw3)[0].double()
-            di = BS.blend_forward_plain(a3[0].double(), *a3[1:], **kw3)[0]
-        same = ((ki[n + 1] == pi[n + 1]) & (pi[n + 1] == di[n + 1])
-                & (di[n] >= LOG_T_EPS))
-        errs = {who: (float((x[n] - di[n])[same].abs().max()),
-                      float((x[:n] - di[:n])[:, same].abs().max()))
-                for who, x in (("kernel", ki), ("plain", pi))}
-        log(f"[recipe-table] {label}, B3 and its plain version against the "
-            f"plain version in float64 on the {int(same.sum())} of "
-            f"{same.numel()} pixels where all three blend the same pairs "
-            "and none is saturated: max |logT error| (kernel, plain) "
-            f"({errs['kernel'][0]:.3g}, {errs['plain'][0]:.3g}), max "
-            f"|channel sum error| ({errs['kernel'][1]:.3g}, "
-            f"{errs['plain'][1]:.3g}); largest n_contrib "
-            f"{int(di[n + 1].max())}; card: {card}")
-
     def blend_rows(calls, label, launched, per):
         nan = float("nan")
-        errs = held(lambda: compare_blend(calls, f"recipe {label}"),
+        split_blend(calls, f"recipe {label}", card)
+        errs = held(lambda: compare_blend(calls, f"recipe {label}",
+                                          exact=True),
                     ("blend_forward", "blend_backward"), f"B3/B4 {label}")
         err3, err4 = errs or (nan, nan)
         if errs is None:        # B4 too, where B3 stopped the comparison
@@ -4843,22 +5261,17 @@ def recipe_tables(run, card, dev, profile_dir=None):
                     calls["blend_forward"][1]["ca"], f"B4 [recipe {label}]"),
                     ("blend_backward",), f"B4 {label}")
             err4 = nan if err4 is None else err4
-            against_float64(calls, label)
         bnd = bounds(calls)
         wk = bnd["blend_work"]
         log(f"[recipe-table] {label} blend work: {wk['rows']} real rows, "
             f"{wk['pairs']} pairs, {wk['ok']} pass the footprint test, "
             f"{wk['gated']} blend")
-        a3, kw3 = calls["blend_forward"]
-        a4, kw4 = calls["blend_backward"]
+        kw3 = calls["blend_forward"][1]
+        k = kernel_calls(calls)
         with torch.no_grad():
-            for name, kfn, pfn, err in (
-                    ("blend_forward", lambda: KBL.blend_forward(*a3, **kw3),
-                     lambda: BS.blend_forward_plain(*a3, **kw3), err3),
-                    ("blend_backward",
-                     lambda: KBL.blend_backward(*a4, **kw4),
-                     lambda: BS.blend_backward_plain(*a4, **kw4), err4)):
-                row(name, label, timings(kfn, pfn), bnd[name], err,
+            for name, err in (("blend_forward", err3),
+                              ("blend_backward", err4)):
+                row(name, label, timings(*k[name]), bnd[name], err,
                     launched, per, ca=kw3["ca"], cv=kw3["cv"])
         return bnd
 
@@ -4891,19 +5304,14 @@ def recipe_tables(run, card, dev, profile_dir=None):
     held(lambda: compare_binning(c1), ("binning_counts", "binning_instances"),
          "B1/B2 stage 1")
     bnd1 = blend_rows(c1, "stage 1", l1, "a stage-1 step")
-    a1, kw1 = c1["compute_counts"]
-    kk1 = dict(grid_x=kw1["grid_x"], grid_y=kw1["grid_y"],
-               gauss_chunk=kw1.get("gauss_chunk", 256))
-    a2, kw2 = c1["compute_instances"]
-    for name, kfn, pfn in (
-            ("binning_counts", lambda: KB.counts(*a1, **kk1),
-             lambda: BP.counts_plain(*a1, **kk1)),
-            ("binning_instances", lambda: KB.instances(*a2, **kw2),
-             lambda: BP.instances_plain(*a2, **kw2))):
-        row(name, "stage 1", timings(kfn, pfn), bnd1[name], 0.0, l1,
-            "a stage-1 step")
-    log(f"[recipe-table] stage 1: {int(a2[7])} instances")
-    peak_ms(s1, "stage-1 step")
+    k1 = kernel_calls(c1)
+    with torch.no_grad():
+        for name in ("binning_counts", "binning_instances"):
+            row(name, "stage 1", timings(*k1[name]), bnd1[name], 0.0, l1,
+                "a stage-1 step")
+    log(f"[recipe-table] stage 1: {int(c1['compute_instances'][0][7])} "
+        "instances")
+    peak_ms(s1, "stage-1 step", card)
     if profile_dir:
         profile_step(s1, profile_dir, "recipe_profile_stage1.txt")
     del st1, ost1, tree, c1, cap1
@@ -4943,35 +5351,17 @@ def recipe_tables(run, card, dev, profile_dir=None):
     e7 = held(lambda: compare_env(c2, f"recipe S = {s_num}"),
               ("env_lookup_forward", "env_lookup_backward"),
               f"B7 S = {s_num}")
-    if e7 is None:
-        e7 = (float("nan"), float("nan"))
-        b7, b7kw = c2["env_lookup_backward"]
-        with torch.no_grad():
-            exact = EP.env_lookup_backward_plain(
-                *(x.double() for x in b7), **b7kw)
-            scale = max(float(exact.abs().max()), 1e-30)
-            errs = [float((x.double() - exact).abs().max()) / scale
-                    for x in (KE.env_lookup_backward(*b7, **b7kw),
-                              EP.env_lookup_backward_plain(*b7, **b7kw))]
-        log(f"[recipe-table] S = {s_num}, B7's backward and its plain "
-            "version against the plain version in float64: max error "
-            f"(kernel, plain) ({errs[0]:.3g}, {errs[1]:.3g}) of max |d_env| "
-            f"{scale:.4g}; card: {card}")
+    e7 = e7 or (float("nan"), float("nan"))
+    split_env_backward(c2, f"recipe S = {s_num}", card)
     fa, _ = c2["env_lookup_forward"]
-    ba, bkw = c2["env_lookup_backward"]
     bnd7 = env_bounds(fa)
+    k2 = kernel_calls(c2)
     with torch.no_grad():
-        for i, (name, kfn, pfn, lfn) in enumerate((
-                ("env_lookup_forward", lambda: KE.env_lookup_forward(*fa),
-                 lambda: EP.env_lookup_forward_plain(*fa),
-                 library_env_forward(fa)),
-                ("env_lookup_backward",
-                 lambda: KE.env_lookup_backward(*ba, **bkw),
-                 lambda: EP.env_lookup_backward_plain(*ba, **bkw),
-                 library_env_backward(c2)))):
-            row(name, f"S = {s_num}", timings(kfn, pfn, lfn), bnd7[name],
+        for i, name in enumerate(("env_lookup_forward",
+                                  "env_lookup_backward")):
+            row(name, f"S = {s_num}", timings(*k2[name]), bnd7[name],
                 e7[i], l2, per2, queries=fa[1].numel())
-    peak_ms(s2, f"S = {s_num} step")
+    peak_ms(s2, f"S = {s_num} step", card)
     if profile_dir:
         ops = profile_step(s2, profile_dir, "recipe_profile_stage2.txt")
         gather = sum(v for k, v in ops.items() if "indexing_backward" in k)
@@ -5390,10 +5780,18 @@ def main() -> int:
     edge_calls, err3e, err4e = {}, 0.0, 0.0
     for tile in (32, 24, 16, 8):
         for name in inputs.BLEND_EDGE_CASES:
-            ec = blend_edge_calls(inputs, name, tile, dev)
+            ec = blend_edge_calls(inputs.blend_edge_inputs(name, tile=tile),
+                                  dev)
             edge_calls[(name, tile)] = ec
             e3x, e4x = compare_blend(ec, f"edge inputs {name}, tile {tile}")
             err3e, err4e = max(err3e, e3x), max(err4e, e4x)
+    # pixels that take pairs just below the alpha clamp, the regime in
+    # which a float32 log(1 - alpha) drifts from exact: B3 held to its
+    # plain version in float64, as at the recipe's size (phase 35)
+    ec = blend_edge_calls(inputs.blend_near_clamp_inputs(), dev)
+    split_blend(ec, "near-clamp inputs", card)
+    e3x, e4x = compare_blend(ec, "near-clamp inputs", exact=True)
+    err3e, err4e = max(err3e, e3x), max(err4e, e4x)
 
     sc_dev, cam_dev = small_scene(dev)
     with Capture() as cap_small:
@@ -5428,40 +5826,12 @@ def main() -> int:
     # ---- 6. timing ------------------------------------------------------
     from svgir_tpu_torch.kernels import binning as KB
     from svgir_tpu_torch.kernels import blend as KBL
-    a1, kw1 = calls["compute_counts"]
-    kk1 = dict(grid_x=kw1["grid_x"], grid_y=kw1["grid_y"],
-               gauss_chunk=kw1.get("gauss_chunk", 256))
     a2, kw2 = calls["compute_instances"]
     a3, kw3 = calls["blend_forward"]
-    a4, kw4 = calls["blend_backward"]
-    lib_b1 = library_counts_carry(calls)
-    lc, lcar = lib_b1()
-    kc, kcar = KB.counts(*a1, **kk1)
-    if not (torch.equal(lc, kc) and torch.equal(lcar, kcar)):
-        raise AssertionError("the B1 yardstick computes another function")
     lib_b1_counts = library_counts(calls)
-    timed = {
-        "binning_counts": (lambda: KB.counts(*a1, **kk1),
-                           lambda: BP.counts_plain(*a1, **kk1), lib_b1),
-        "binning_instances": (lambda: KB.instances(*a2, **kw2),
-                              lambda: BP.instances_plain(*a2, **kw2), None),
-        "blend_forward": (lambda: KBL.blend_forward(*a3, **kw3),
-                          lambda: BS.blend_forward_plain(*a3, **kw3), None),
-        "blend_backward": (lambda: KBL.blend_backward(*a4, **kw4),
-                           lambda: BS.blend_backward_plain(*a4, **kw4), None),
-    }
-    replaces = {
-        "binning_counts": "svgir_tpu/ops/binning_pallas.py:44",
-        "binning_instances": "svgir_tpu/ops/binning_pallas.py:114",
-        "blend_forward": "svgir_tpu/ops/blend_pallas_strip.py:51",
-        "blend_backward": "svgir_tpu/ops/blend_pallas_strip.py:267",
-    }
-    sources = {
-        "binning_counts": "svgir_tpu_torch/csrc/binning.cu",
-        "binning_instances": "svgir_tpu_torch/csrc/binning.cu",
-        "blend_forward": "svgir_tpu_torch/csrc/blend_forward.cu",
-        "blend_backward": "svgir_tpu_torch/csrc/blend_backward.cu",
-    }
+    timed = kernel_calls(calls)
+    replaces = {k: f"svgir_tpu/ops/{v}" for k, v in REPLACES.items()}
+    sources = {k: f"svgir_tpu_torch/csrc/{v}" for k, v in SOURCES.items()}
     errs = {"binning_counts": 0.0, "binning_instances": 0.0,
             "blend_forward": err3, "blend_backward": err4}
     bnd = bounds(calls)
@@ -5516,12 +5886,7 @@ def main() -> int:
     # path runs such a grid, so 0 launches)
     rw = [torch.from_numpy(r).to(dev) for r in inputs.wide_grid_rects(256, 256)]
     kkw = dict(grid_x=256, grid_y=256, gauss_chunk=256)
-    lib_w = library_counts_carry({"compute_counts": (rw, kkw)})
-    lc, lcar = lib_w()
-    kc, kcar = KB.counts(*rw, **kkw)
-    if not (torch.equal(lc, kc) and torch.equal(lcar, kcar)):
-        raise AssertionError("the B1 yardstick computes another function on "
-                             "the wide grid")
+    lib_w = b1_yardstick({"compute_counts": (rw, kkw)})
     t = timings(lambda: KB.counts(*rw, **kkw),
                 lambda: BP.counts_plain(*rw, **kkw), lib_w)
     nsw, tw = rw[0].numel(), 256 * 256
@@ -5847,6 +6212,11 @@ def main() -> int:
         f"test, {wk2['gated']} blend; {fa[1].numel()} env queries per step")
 
     log(f"[stage 2] {time.time() - t_start:.1f} s")
+
+    # ---- 35. the recipe's size: B1-B4 and B7 on 524,288 rows -------------
+    # (early in the run, where torch.profiler keeps its device records)
+    report.extend(run_recipe_size(card, dev))
+    torch.cuda.empty_cache()
 
     # ---- 12-16. the radiance bake ------------------------------------------
     out_dir = sys.argv[sys.argv.index("--profile") + 1] \

@@ -14,6 +14,7 @@
 // log-transmittance from the forward's final logT:
 //   logT_excl_i = logT_after_i - loga_i
 //   d_loga_i    = g_logT + sum_{j > i} dw_j w_j
+// (loga_i the forward's own term, svgir_log1m_alpha in blend_common.cuh),
 // and forming the rows of _bwd_kernel: d_mean2d, d_conic, d_opacity (only
 // where alpha < 0.99), d_Jinv and d_lam (through the interior of the u, v
 // clamps), the plain rows g . w and the vertex rows g . w . bilinear weight.
@@ -279,7 +280,8 @@ svgir_blend_bwd_kernel(const float* __restrict__ slab, const int* __restrict__ t
         const float gw_i = s_gw[i0 + b];
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
-          const float loga = ok[j] ? log1pf(-alpha[j]) : 0.f;
+          const float loga =
+              ok[j] ? svgir_log1m_alpha(r, px[j % LB::BX], py[j / LB::BX], alpha[j]) : 0.f;
           const float logT_excl = logT[j] - loga;
           const bool gate = ok[j] && (logT_excl >= SVGIR_LOG_T_EPS);
           const float expT = expf(logT_excl);

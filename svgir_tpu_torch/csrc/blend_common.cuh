@@ -37,6 +37,27 @@ __device__ __forceinline__ float svgir_power_floor(float o) {
   return o > 0.f ? logf(SVGIR_ALPHA_MIN / o) - 1e-3f : __int_as_float(0x7f800000);
 }
 
+// log(1 - alpha) of a pair that passes the footprint test, at the pixel
+// (px, py), given the pair's float32 alpha (its decisions' value).  From
+// alpha 0.5 up, d log(1 - alpha) / d alpha = -1 / (1 - alpha) reaches
+// -100 below the 0.99 clamp, and log1pf(-alpha) carried alpha's own
+// float32 rounding and expf's last bits (6e-8 each) into the term 100-fold:
+// at the recipe's size on an H100 a pixel's logT lay 1.9e-5 from exact.
+// There 1 - alpha is formed as (1 - o) - o expm1(power), two terms of one
+// sign for an activated opacity o <= 1, from the power evaluated in
+// float64 (thin splats cancel its terms: 70x the power measured) and
+// rounded once: the term lands within a few ulp.  Below 0.5, and for
+// o > 1 (test inputs only), log1pf(-alpha) as the plain version.
+__device__ __forceinline__ float svgir_log1m_alpha(const float* r, float px, float py,
+                                                   float alpha) {
+  const float o = r[5];
+  if (alpha < 0.5f || o > 1.f) return log1pf(-alpha);
+  const double dx = (double)r[0] - (double)px, dy = (double)r[1] - (double)py;
+  const float power =
+      (float)(-0.5 * ((double)r[2] * dx * dx + (double)r[4] * dy * dy) - (double)r[3] * dx * dy);
+  return logf(fmaxf(1.f - SVGIR_ALPHA_MAX, (1.f - o) - o * expm1f(power)));
+}
+
 // Bilinear vertex coordinates of a pixel in a surfel's tangent frame
 // (forward.cu:604-617): u, v clamped to [0.001, 0.999], plus the raw values
 // and the uv extents the backward needs.

@@ -10,9 +10,11 @@
 //   ok    = power <= 0 && alpha >= 1/255
 //   gate  = ok && logT_excl >= log(1e-4),  w = alpha exp(logT_excl)
 // The running logT adds log1p(-alpha) for every ok instance, also after the
-// pixel has saturated.  A tile stops before a chunk once no pixel of the
-// tile (padding pixels included) has logT >= log(1e-4); that chunk-level
-// granularity fixes the final logT of saturated pixels.
+// pixel has saturated; from alpha 0.5 up that term is formed from 1 -
+// alpha without alpha's rounding (svgir_log1m_alpha, blend_common.cuh).
+// A tile stops before a chunk once no pixel of the tile (padding pixels
+// included) has logT >= log(1e-4); that chunk-level granularity fixes the
+// final logT of saturated pixels.
 //
 // Outputs, B3 (image layout): image [CA+CV+2, gy*tile, gx*tile] (plain
 // sums, vertex sums, final logT, n_contrib) and eff[t] = chunks processed.
@@ -144,7 +146,7 @@ svgir_blend_fwd_kernel(const float* __restrict__ slab, const int* __restrict__ t
         const bool ok = (power[j] <= 0.f) && (alpha >= SVGIR_ALPHA_MIN);
         const bool gate = ok && (logT[j] >= SVGIR_LOG_T_EPS);
         const float w = gate ? alpha * expf(logT[j]) : 0.f;
-        if (ok) logT[j] += log1pf(-alpha);
+        if (ok) logT[j] += svgir_log1m_alpha(r, px[j % LB::BX], py[j / LB::BX], alpha);
         if (gate) {
           nc[j] += 1.f;
 #pragma unroll

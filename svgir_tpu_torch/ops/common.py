@@ -13,10 +13,18 @@ from __future__ import annotations
 
 import torch
 
-ALPHA_MIN = 1.0 / 255.0
-ALPHA_MAX = 0.99
-LOG_T_EPS = -9.210340371976182  # log(1e-4)
-NG = 12                         # geometry rows of a blend slab row
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as the kernels' ``float`` constants and a
+    float32 tensor's comparisons take it: the plain versions run on float64
+    inputs then clamp and gate at the same values."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+ALPHA_MIN = _f32(1.0 / 255.0)
+ALPHA_MAX = _f32(0.99)
+LOG_T_EPS = _f32(-9.210340371976182)  # log(1e-4)
+NG = 12                               # geometry rows of a blend slab row
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -7,7 +7,8 @@ past their clamps, a chunk of padding only; at the channel widths of the
 exact-width kernels (14/0, 13/13, 16/16) and one generic width (3/4), at
 tile 16, and the stage-1 width at tile 8 (where the stage-1 backward kernel,
 whose 4-pixel lane patches need a side that is a multiple of 16, hands over
-to the generic one).
+to the generic one).  And ``blend_near_clamp_inputs``: pixels that take
+pairs just below the alpha clamp, at the stage-1 widths.
 ``chip_smoke.py`` holds the CUDA kernels to the plain versions on the same
 inputs.  Tolerances as ``tests/test_torch_blend.py``.
 
@@ -33,7 +34,8 @@ from svgir_tpu.ops import rasterizer as jras
 from svgir_tpu_torch.ops import blend_pallas_strip as tstrip
 from svgir_tpu_torch.ops.common import ALPHA_MAX, LOG_T_EPS
 
-from tests.torch_kernel_inputs import BLEND_EDGE_CASES, blend_edge_inputs
+from tests.torch_kernel_inputs import (BLEND_EDGE_CASES, blend_edge_inputs,
+                                      blend_near_clamp_inputs)
 
 SPT = 3          # the grid's 3 columns: one strip per tile row, no padding
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,7 +130,11 @@ def test_edge_inputs_reach_their_edges(blended):
 
 @pytest.mark.parametrize("blended", CASES, indirect=True, ids=_case_id)
 def test_forward_matches(blended):
-    name, d, j, t = blended
+    _, d, j, t = blended
+    _assert_forward(d, j, t)
+
+
+def _assert_forward(d, j, t):
     nch = d["ca"] + d["cv"]
     np.testing.assert_array_equal(t["eff"], j["eff"])
     np.testing.assert_allclose(t["img"][:nch], j["img"][:nch], rtol=1e-5,
@@ -156,6 +162,10 @@ def _done_rows(d, eff):
 @pytest.mark.parametrize("blended", CASES, indirect=True, ids=_case_id)
 def test_backward_rows_match(blended):
     name, d, j, t = blended
+    _assert_backward(name, d, j, t)
+
+
+def _assert_backward(name, d, j, t):
     # rows of the chunks each tile processed (the reference leaves the
     # others unwritten, C-5)
     done = _done_rows(d, t["eff"])
@@ -173,6 +183,37 @@ def test_backward_rows_match(blended):
                                    err_msg=f"{name}: {kind}")
     skipped = np.setdiff1d(np.arange(len(t["dslab"])), done)
     assert not t["dslab"][skipped].any()
+
+
+def test_plain_matches_near_the_alpha_clamp():
+    """``blend_near_clamp_inputs``: unsaturated pixels that take one or
+    two pairs with alpha in [0.95, 0.99), where -1 / (1 - alpha) nears
+    -100 and a float32 log(1 - alpha) drifts most from exact (the case
+    in which the CUDA blends now evaluate that term in float64;
+    ``chip_smoke.py`` holds them to the plain version in float64 on these
+    inputs).  The plain forward and backward against svgir_tpu's strip
+    kernels, at the tolerances above."""
+    d = blend_near_clamp_inputs()
+    j, t = _jax_blend(d), _torch_blend(d)
+    nch, tile = d["ca"] + d["cv"], d["tile"]
+    taking = [0, 0]     # unsaturated pixels taking one such pair, two
+    for k in range(d["grid_x"] * d["grid_y"]):
+        m = tstrip._chunk_math(
+            torch.as_tensor(d["slab"][None, k * d["chunk"]:
+                                      (k + 1) * d["chunk"]]),
+            *tstrip._pixel_coords(range(k, k + 1), d["grid_x"], tile,
+                                  "cpu"))
+        near = (m["ok"] & (m["alpha"] >= 0.95)
+                & (m["alpha"] < ALPHA_MAX))[0].sum(-1)
+        ty, tx = divmod(k, d["grid_x"])
+        lt = t["img"][nch, ty * tile:(ty + 1) * tile,
+                      tx * tile:(tx + 1) * tile].reshape(-1)
+        live = torch.as_tensor(lt >= LOG_T_EPS)
+        taking[0] += int(((near >= 1) & live).sum())
+        taking[1] += int(((near >= 2) & live).sum())
+    assert taking[0] >= 50 and taking[1] >= 5, taking
+    _assert_forward(d, j, t)
+    _assert_backward("near clamp", d, j, t)
 
 
 _FRESH = """

@@ -132,6 +132,41 @@ def test_plain_matches_pallas_on_an_env_past_shared_memory():
     _rel(d, denv_p, 1e-5)
 
 
+def _backward_float64(u, v, g, h, w):
+    """d_env of the lookup evaluated in float64 from the float32 queries:
+    the taps as ``lights._bilinear_lookup`` takes them, each tap's weight
+    times its cotangent summed by ``np.bincount``."""
+    def taps(q, size):
+        q0 = np.clip(np.floor(q), 0, size - 1)
+        f = np.clip(q - q0, 0.0, 1.0)
+        s = np.minimum(q0, size - 2)
+        return s.astype(np.int64), np.where(q0 > s, 1.0, f)
+
+    su, wu = taps(u.astype(np.float64), w)
+    sv, wv = taps(v.astype(np.float64), h)
+    base = sv * w + su
+    g = g.astype(np.float64)
+    out = np.zeros((h * w, g.shape[1]))
+    for idx, wt in ((base, (1 - wu) * (1 - wv)), (base + 1, wu * (1 - wv)),
+                    (base + w, (1 - wu) * wv), (base + w + 1, wu * wv)):
+        for ch in range(g.shape[1]):
+            out[:, ch] += np.bincount(idx, weights=wt * g[:, ch],
+                                      minlength=h * w)
+    return out.reshape(h, w, -1)
+
+
+def test_plain_backward_sums_like_float64_at_millions_of_queries():
+    """2^22 queries on the recipe's 32 x 64 env: the plain backward, the
+    oracle the kernel is held to within 1e-5 of max |d_env|, lies within a
+    tenth of that of a float64 evaluation.  A float32 running sum of the
+    16.8M taps drifts 2.9e-6 here (and 1.9e-5 at the recipe's 33.5M
+    queries on an H100); the plain version sums in float64."""
+    env, u, v, g = env_lookup_inputs(32, 64, 3, m=1 << 22, seed=1)
+    d = P.env_lookup_backward_plain(_t(u), _t(v), _t(g), h=32, w=64)
+    assert d.dtype == torch.float32
+    _rel(d.numpy(), _backward_float64(u, v, g, 32, 64), 1e-6)
+
+
 def test_autograd_reaches_the_env_only(case):
     env = _t(case["env"]).requires_grad_(True)
     u = _t(case["u"]).requires_grad_(True)

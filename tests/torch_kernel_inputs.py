@@ -212,6 +212,63 @@ BLEND_EDGE_CASES = {"stage1": (14, 0), "stage2": (13, 13), "eval": (16, 16),
                     "generic": (3, 4)}
 
 
+def blend_near_clamp_inputs(*, tile: int = 16, chunk: int = 128,
+                            seed: int = 0):
+    """Blend inputs (``blend_edge_inputs``' layout and keys, the stage-1
+    widths CA 14 / CV 0) whose unsaturated pixels take pairs with alpha
+    just below the 0.99 clamp beside faint ones, where d log(1 - alpha) /
+    d alpha nears -100: the regime in which a float32 log(1 - alpha)
+    drifts past 1e-5 of exact at the recipe's size.
+
+    Every tile holds one chunk of 128 rows in an order drawn from the
+    seed: 96 faint wide splats (alpha up to 0.03) over it and 32
+    near-opaque ones (opacity 0.992-1, so alpha clamps over their cores and
+    runs through 0.95-0.99 around them), two over each 4 x 4 block of a
+    tile 16, half of them thin and turned (conic xy^2 at 81-96% of
+    xx yy, so the power's terms cancel)."""
+    ca, cv = BLEND_EDGE_CASES["stage1"]
+    kr = 12 + ca + 4 * cv
+    gx, gy = 3, 2
+    rng = np.random.default_rng(seed)
+    n_t = gx * gy
+    m = n_t * chunk
+    slab = np.zeros((m, kr), np.float32)
+    for t in range(n_t):
+        ox, oy = (t % gx) * tile, (t // gx) * tile
+        r = slab[t * chunk:(t + 1) * chunk]
+        faint, near = chunk * 3 // 4, chunk // 4
+        r[:, 0] = ox + rng.uniform(0, tile, chunk)
+        r[:, 1] = oy + rng.uniform(0, tile, chunk)
+        r[:faint, 2] = rng.uniform(0.002, 0.02, faint)
+        r[:faint, 4] = rng.uniform(0.002, 0.02, faint)
+        r[:faint, 3] = 0.0
+        r[:faint, 5] = rng.uniform(0.005, 0.03, faint)
+        b = np.arange(near)
+        r[faint:, 0] = ox + (b % 4) * tile / 4 + tile / 8 + rng.uniform(
+            -0.5, 0.5, near)
+        r[faint:, 1] = oy + (b // 4 % 4) * tile / 4 + tile / 8 \
+            + rng.uniform(-0.5, 0.5, near)
+        cxx = rng.uniform(0.3, 1.5, near)
+        cyy = rng.uniform(0.3, 1.5, near)
+        cxy = rng.uniform(-0.5, 0.5, near) * np.sqrt(cxx * cyy)
+        thin = b >= near // 2
+        cxy[thin] = np.sign(cxy[thin] + 1e-9) * np.sqrt(
+            cxx[thin] * cyy[thin]) * (1 - rng.uniform(0.02, 0.1, thin.sum()))
+        r[faint:, 2], r[faint:, 3], r[faint:, 4] = cxx, cxy, cyy
+        r[faint:, 5] = rng.uniform(0.992, 1.0, near)
+        r[:, 6:10] = rng.normal(size=(chunk, 4))
+        r[:, 10:12] = rng.uniform(1.0, 6.0, (chunk, 2))
+        r[:, 12:] = rng.uniform(0.0, 1.0, (chunk, kr - 12))
+        r[:] = r[rng.permutation(chunk)]
+    img_shape = (ca + cv + 2, gy * tile, gx * tile)
+    return dict(slab=slab,
+                tile_start=np.arange(0, m, chunk).astype(np.int32),
+                tile_count=np.full(n_t, chunk, np.int32),
+                g_img=rng.normal(size=img_shape).astype(np.float32),
+                g_wsum=rng.normal(size=m).astype(np.float32), ca=ca, cv=cv,
+                grid_x=gx, grid_y=gy, tile=tile, chunk=chunk)
+
+
 def blend_edge_inputs(name: str, *, tile: int = 16, chunk: int = 128,
                       seed: int = 0):
     """Inputs of the blend forward and backward at their edge cases: a dict
