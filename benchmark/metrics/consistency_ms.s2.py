@@ -1,0 +1,15 @@
+"""Device ms a stage-2 step of the radiance consistency loss: spans
+``svgir.consistency`` (its forward, ``models/radiance.py``
+``radiance_consistency_loss``) and ``svgir.consistency.bwd`` (its backward,
+between the marks on its outputs and inputs), from the program's span
+registry (``svgir_tpu_torch.utils.profiling``) over the traced window's
+steps. Each span's device ms is its interval on the stream, from the CUDA
+event at its entry to the one at its exit, idle time inside it included:
+about 3% of the traced stage-2 window is idle."""
+
+from benchlib import spans
+
+
+def read(ctx):
+    return spans.device_ms_a_step(ctx, 2, "svgir.consistency",
+                                  "svgir.consistency.bwd")

@@ -4054,7 +4054,6 @@ def run_render_sh(card, dev):
     from svgir_tpu_torch.ops import grid_tracer as GT
     from svgir_tpu_torch.ops import march_pallas as MP
     from svgir_tpu_torch.ops import tracing as TR
-    from svgir_tpu_torch.utils import profiling
 
     t_phase = time.time()
     state, cam = bench_scene(dev, inward=True)
@@ -4064,12 +4063,12 @@ def run_render_sh(card, dev):
     torch.cuda.synchronize()
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with Recorder(GT, "nearest_hits_grid") as r_grid, \
-            profiling.Timing("render_sh", verbose=False) as timing:
+    t0 = time.perf_counter()
+    with Recorder(GT, "nearest_hits_grid") as r_grid:
         img = RS.render_sh_image(*args, cam, valid=state["alive"])
-        timing.result = img
-    render_s = timing.ms / 1e3
-    peak = profiling.device_memory_stats(dev)["allocated_bytes.all.peak"]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     launches = kernels.launches()
     check_launches(launches, "render_sh", at_least=[("march", 1)],
                    none=("blend_forward", "env_lookup_forward"))
@@ -4165,8 +4164,8 @@ def run_render_sh(card, dev):
                      **t8, "bound_ms": bms, "bound_by": by})
     log(f"[render_sh] 800x800, {int(state['alive'].sum())} inward surfels, "
         f"{h * w} camera rays in {n_chunks} chunks: {render_s:.3f} s "
-        f"(first call, utils/profiling.Timing), peak memory "
-        f"{peak / 2**30:.3f} GiB (device_memory_stats), "
+        f"(first call, host clock to a synchronize), peak memory "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated), "
         f"{float((hit >= 0).float().mean()):.4f} of the rays hit; "
         f"{launches['march']} B8 launches an image; card: {card}")
     log(f"[render_sh] {time.time() - t_phase:.1f} s")

@@ -41,6 +41,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from svgir_tpu_torch import kernels
+from svgir_tpu_torch.utils import profiling
 
 STAGE1_FLAGS = [
     "--lambda_normal_render_depth", "0.0",
@@ -121,7 +122,7 @@ class _Part:
 
     def __enter__(self):
         if self.cuda:
-            torch.cuda.synchronize()
+            profiling.synchronize()
             torch.cuda.reset_peak_memory_stats()
         self.launched = kernels.launches()
         self.t0 = time.perf_counter()
@@ -130,7 +131,7 @@ class _Part:
 
     def __exit__(self, *exc):
         if self.cuda:
-            torch.cuda.synchronize()
+            profiling.synchronize()
         rec = {"seconds": time.perf_counter() - self.t0}
         if self.cuda:
             rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -23,6 +23,13 @@ iteration's view to ``visualize/iter_<iter>.png`` every
 ``--save_training_vis_iteration``.  ``--eval`` on a scene with test views
 renders them at the end of the run (``eval/metrics.json``,
 ``metric_eval.txt`` and the renders under ``eval/``; stage 2 scores pbr).
+
+``--profile_steps A:B`` traces iterations A to B of either stage under
+``torch.profiler`` (``utils.profiling``): on leaving B it writes
+``trace.json`` (the layers' spans and the kernels on one timeline) and
+``spans.json`` (per span: calls, host and device ms, host syncs) into
+``--profile_dir`` (``<model_path>/profile`` by default) and prints host
+ms, device ms and host syncs a step for each span.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from svgir_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                     PipelineConfig, RasterConfig,
                                     add_to_parser, from_args)
+from svgir_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,6 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on")
+    parser.add_argument("--profile_steps", type=profiling.parse_steps,
+                        default=None, metavar="A:B",
+                        help="trace iterations A to B (torch.profiler)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="where --profile_steps writes trace.json and "
+                             "spans.json (default: <model_path>/profile)")
     return parser
 
 
@@ -187,6 +201,11 @@ def main(argv=None):
                                    else f"{k}={v}" for k, v in entry.items()),
                   flush=True)
 
+    window = None
+    if args.profile_steps:
+        window = profiling.StepWindow(
+            *args.profile_steps,
+            args.profile_dir or os.path.join(out_dir, "profile"))
     common = dict(
         bg=bg, raster_cfg=raster_cfg, spatial_lr_scale=scene.cameras_extent,
         sh_degree=model_cfg.sh_degree, first_iter=first_iter,
@@ -196,7 +215,7 @@ def main(argv=None):
         test_cameras=scene.test_cameras, test_interval=args.test_interval,
         vis_interval=(pipe_cfg.save_training_vis_iteration
                       if pipe_cfg.save_training_vis else 0),
-        device=device)
+        profile_window=window, device=device)
     final = os.path.join(out_dir, f"chkpnt{opt_cfg.iterations}.npz")
     try:
         if not is_pbr:
@@ -219,6 +238,8 @@ def main(argv=None):
             CK.save_checkpoint(final, opt_cfg.iterations, state, opt_state,
                                env=env_state, extra=bake)
     finally:
+        if window is not None:
+            window.close()
         if tb_cb is not None:
             tb_cb.writer.close()
     CK.save_model_ply(os.path.join(out_dir, "point_cloud.ply"),

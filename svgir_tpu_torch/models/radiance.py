@@ -20,6 +20,7 @@ import torch
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models.lights import equirect_grid_coords
 from svgir_tpu_torch.ops import grid_tracer, tracing
+from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.graphics import fibonacci_sphere_sampling
 from svgir_tpu_torch.utils.transforms import normalize
 
@@ -191,6 +192,7 @@ def irradiance_sample(sample_idx: torch.Tensor, bake: Dict,
     return _irradiance_from_table(table, pri_dir, hit, s)
 
 
+@profiling.span("svgir.consistency")
 def radiance_consistency_loss(params, bake: Dict, cam_center: torch.Tensor,
                               env_direct_light, *, alive=None,
                               env_radiance=None) -> torch.Tensor:
@@ -203,6 +205,7 @@ def radiance_consistency_loss(params, bake: Dict, cam_center: torch.Tensor,
     n = xyz.shape[0]
     if env_radiance is None:
         env_radiance = env_direct_light(bake["incident_dirs"])
+    mark = profiling.layer("svgir.consistency")
     env_term = env_radiance * bake["incident_areas"]
 
     view_dirs = normalize(xyz - cam_center[None])
@@ -224,9 +227,11 @@ def radiance_consistency_loss(params, bake: Dict, cam_center: torch.Tensor,
                                      sample_idx]
     err = (irr - target).abs()
     if alive is not None:
-        return torch.where(alive[:, None], err, torch.zeros_like(err)).sum() \
+        loss = torch.where(alive[:, None], err, torch.zeros_like(err)).sum() \
             / (torch.clamp(alive.sum(), min=1) * 3)
-    return err.mean()
+    else:
+        loss = err.mean()
+    return profiling.layer_out(mark, loss)
 
 
 IRRADIANCE_BUDGET = 4 << 30   # bytes of temporaries per irradiance_full chunk

@@ -21,6 +21,7 @@ import torch
 
 from svgir_tpu_torch.kernels import env_lookup as K
 from svgir_tpu_torch.ops.common import on_cuda
+from svgir_tpu_torch.utils import profiling
 
 
 def _taps(q: torch.Tensor, size: int):
@@ -95,7 +96,9 @@ class _Lookup(torch.autograd.Function):
     def backward(ctx, g):
         u, v = ctx.saved_tensors
         h, w = ctx.hw
-        return env_lookup_backward(u, v, g.contiguous(), h=h, w=w), None, None
+        with profiling.span("svgir.env_lookup.bwd"):
+            return (env_lookup_backward(u, v, g.contiguous(), h=h, w=w),
+                    None, None)
 
 
 def bilinear_lookup(env, u, v):

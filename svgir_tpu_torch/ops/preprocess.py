@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from svgir_tpu_torch.config import RasterConfig
+from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils import sh as sh_utils
 from svgir_tpu_torch.utils.transforms import quat_to_rotmat
 
@@ -46,6 +47,7 @@ def _tile_coord(v: torch.Tensor, tile: int, grid: int) -> torch.Tensor:
     return torch.clamp(q.to(torch.int32), 0, grid)
 
 
+@profiling.span("svgir.preprocess")
 def preprocess(
     means3d: torch.Tensor,          # [N, 3]
     scales: torch.Tensor,           # [N, 3]
@@ -67,6 +69,7 @@ def preprocess(
     scale_modifier: float = 1.0,
     cfg: RasterConfig = RasterConfig(),
 ) -> Preprocessed:
+    mark = profiling.layer("svgir.preprocess")
     n = means3d.shape[0]
     tile = cfg.tile
     grid_x = (width + tile - 1) // tile
@@ -150,14 +153,14 @@ def preprocess(
     else:
         rgb = means3d.new_zeros(n, 3)
 
-    return Preprocessed(
+    return profiling.layer_out(mark, Preprocessed(
         valid=valid, mean2d=mean2d, depth=p_view[:, 2], conic=conic,
         radius=radius_i,
         rect_min=torch.stack([rmin_x, rmin_y], -1),
         rect_max=torch.stack([rmax_x, rmax_y], -1),
         tiles_touched=tiles_touched,
         normal_view=n_view, jinv=jinv, lam=s[:, :2],
-        rgb=rgb, view_cos=view_cos)
+        rgb=rgb, view_cos=view_cos))
 
 
 def _ewa_cov2d(p_view, cov3d, W, fx: float, fy: float, tanx: float,

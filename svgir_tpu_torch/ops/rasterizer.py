@@ -35,6 +35,7 @@ from svgir_tpu_torch.ops.binning import (bin_instances,
                                          bin_instances_counting,
                                          pad_to_chunks)
 from svgir_tpu_torch.ops.preprocess import Preprocessed, preprocess
+from svgir_tpu_torch.utils import profiling
 
 
 class RenderBuffers(NamedTuple):
@@ -106,12 +107,13 @@ class _BlendGather(torch.autograd.Function):
     def backward(ctx, g_img, g_weights):
         slab, idx, tile_start, img, eff = ctx.saved_tensors
         kw = ctx.kw
-        g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
-        d_inst = blend_pallas_strip.blend_backward(
-            slab, tile_start, eff, g_img.contiguous(),
-            img[kw["ca"] + kw["cv"]], g_wsum, **kw)
-        return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None, None,
-                None, None)
+        with profiling.span("svgir.blend.bwd"):
+            g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
+            d_inst = blend_pallas_strip.blend_backward(
+                slab, tile_start, eff, g_img.contiguous(),
+                img[kw["ca"] + kw["cv"]], g_wsum, **kw)
+            return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None,
+                    None, None, None)
 
 
 class _BlendGatherTiles(torch.autograd.Function):
@@ -136,12 +138,13 @@ class _BlendGatherTiles(torch.autograd.Function):
     def backward(ctx, g_out, g_weights):
         slab, idx, tile_start, out = ctx.saved_tensors
         kw = ctx.kw
-        g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
-        meta = out[:, kw["ca"] + kw["cv"]:].contiguous()
-        d_inst = blend_pallas.blend_backward(
-            slab, tile_start, g_out.contiguous(), meta, g_wsum, **kw)
-        return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None, None,
-                None, None)
+        with profiling.span("svgir.blend.bwd"):
+            g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
+            meta = out[:, kw["ca"] + kw["cv"]:].contiguous()
+            d_inst = blend_pallas.blend_backward(
+                slab, tile_start, g_out.contiguous(), meta, g_wsum, **kw)
+            return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None,
+                    None, None, None)
 
 
 def _pack_slab(prep: Preprocessed, opacity: torch.Tensor,
@@ -244,26 +247,28 @@ def rasterize(
     if mean2d_offset is not None:
         prep = prep._replace(mean2d=prep.mean2d + mean2d_offset)
 
-    if cfg.binner == "counting":
-        padded = bin_instances_counting(prep, width=width, height=height,
-                                        cfg=cfg)
-    else:
-        binned = bin_instances(prep, width=width, height=height, cfg=cfg)
-        padded = pad_to_chunks(binned, chunk=cfg.chunk,
-                               max_instances=cfg.max_instances)
+    with profiling.span("svgir.binning"):
+        if cfg.binner == "counting":
+            padded = bin_instances_counting(prep, width=width, height=height,
+                                            cfg=cfg)
+        else:
+            binned = bin_instances(prep, width=width, height=height, cfg=cfg)
+            padded = pad_to_chunks(binned, chunk=cfg.chunk,
+                                   max_instances=cfg.max_instances)
 
-    slab_g, ca, cv = _pack_slab(prep, opacity, features, vfeatures, cfg)
-    kw = dict(ca=ca, cv=cv, grid_x=grid_x, grid_y=grid_y, tile=tile,
-              chunk=cfg.chunk)
-    tile_start, tile_count = _clamp_runs(padded, cfg.max_instances,
-                                         cfg.chunk)
-    strip = cfg.strip if padded.order is not None else 0
-    # one extra all-zero row: padding slots (gid -1) gather it and their
-    # gradients scatter back into it
-    slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
-    blend = _BlendGather if strip else _BlendGatherTiles
-    out, weights = blend.apply(slab_ext, padded.gaussian_id, tile_start,
-                               tile_count, kw, weights_grad, need_weights)
+    with profiling.span("svgir.blend"):
+        slab_g, ca, cv = _pack_slab(prep, opacity, features, vfeatures, cfg)
+        kw = dict(ca=ca, cv=cv, grid_x=grid_x, grid_y=grid_y, tile=tile,
+                  chunk=cfg.chunk)
+        tile_start, tile_count = _clamp_runs(padded, cfg.max_instances,
+                                             cfg.chunk)
+        strip = cfg.strip if padded.order is not None else 0
+        # one extra all-zero row: padding slots (gid -1) gather it and
+        # their gradients scatter back into it
+        slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
+        blend = _BlendGather if strip else _BlendGatherTiles
+        out, weights = blend.apply(slab_ext, padded.gaussian_id, tile_start,
+                                   tile_count, kw, weights_grad, need_weights)
     # strip > 0 blends into image layout; else assemble the tile blocks
     img_p = out if strip else blend_pallas.to_image(out, grid_x, grid_y,
                                                     tile)

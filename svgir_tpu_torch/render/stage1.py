@@ -17,6 +17,7 @@ from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.ops.rasterizer import rasterize
 from svgir_tpu_torch.utils import losses as L
+from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.image import depth2normal
 
 
@@ -25,6 +26,7 @@ def _maxpool9(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x[None], 9, stride=1, padding=4)[0]
 
 
+@profiling.span("svgir.render")
 def render_view_stage1(camera, params, bg: torch.Tensor, *,
                        sh_degree: int = 3, active_sh_degree=None,
                        alive: Optional[torch.Tensor] = None,
@@ -79,6 +81,7 @@ def render_view_stage1(camera, params, bg: torch.Tensor, *,
     }
 
 
+@profiling.span("svgir.losses")
 def calculate_loss_stage1(camera, params, results, opt: OptimizationConfig,
                           iteration, *, mono=None):
     """render.py:137-232: the terms of the shipped recipes plus the

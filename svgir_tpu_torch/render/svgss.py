@@ -31,11 +31,13 @@ from svgir_tpu_torch.models import radiance as RAD
 from svgir_tpu_torch.ops.rasterizer import rasterize
 from svgir_tpu_torch.ops.shading import rendering_equation4
 from svgir_tpu_torch.utils import losses as L
+from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.graphics import rgb_to_srgb
 from svgir_tpu_torch.utils.image import depth2normal
 from svgir_tpu_torch.utils.transforms import normalize
 
 
+@profiling.span("svgir.render")
 def render_view_svgss(camera, params, bake: Dict, env_params,
                       bg: torch.Tensor, *, is_training: bool = True,
                       alive: Optional[torch.Tensor] = None,
@@ -76,17 +78,20 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     elif env_qxy_fn_override is not None:
         env_qxy_fn = env_qxy_fn_override
 
-    # one env evaluation, shared by the shading and the consistency loss
-    qxy = bake.get("incident_qxy")
-    if qxy is not None and env_qxy_fn is not None:
-        env_radiance = env_qxy_fn(qxy)
-    else:
-        env_radiance = env_fn(bake["incident_dirs"])
+    with profiling.span("svgir.shading"):
+        # one env evaluation, shared by the shading and the consistency
+        # loss
+        qxy = bake.get("incident_qxy")
+        if qxy is not None and env_qxy_fn is not None:
+            env_radiance = env_qxy_fn(qxy)
+        else:
+            env_radiance = env_fn(bake["incident_dirs"])
 
-    pbr, extra = rendering_equation4(
-        base_color, roughness, shading_normal, viewdirs, radiances,
-        env_fn, bake["visibility"], bake["incident_dirs"],
-        bake["incident_areas"], env_radiance=env_radiance)
+        mark = profiling.layer("svgir.shading")
+        pbr, extra = profiling.layer_out(mark, rendering_equation4(
+            base_color, roughness, shading_normal, viewdirs, radiances,
+            env_fn, bake["visibility"], bake["incident_dirs"],
+            bake["incident_areas"], env_radiance=env_radiance))
 
     if is_training:
         features = torch.cat([
@@ -179,6 +184,7 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     return results
 
 
+@profiling.span("svgir.losses")
 def calculate_loss_svgss(camera, params, bake, results,
                          opt: OptimizationConfig, env_params, iteration, *,
                          alive=None) -> tuple[torch.Tensor, Dict]:

@@ -18,6 +18,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from svgir_tpu_torch.utils import profiling
+
 FIELDS = ("image", "image_mask", "depth", "normal", "mono")
 MATRICES = ("world_view", "full_proj", "camera_center", "prcppoint")
 
@@ -55,5 +57,5 @@ def stage_cameras(cams: Sequence, *, device="cuda") -> List:
                 moved[f] = a.to(device=device, dtype=torch.float32)
         staged.append(dataclasses.replace(cam, **moved))
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        profiling.synchronize(device)
     return staged

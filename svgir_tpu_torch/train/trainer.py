@@ -32,6 +32,7 @@ from svgir_tpu_torch.render.svgss import render_svgss, render_view_svgss
 from svgir_tpu_torch.train import checkpoint as CK
 from svgir_tpu_torch.train import optim
 from svgir_tpu_torch.train.staging import stage_cameras
+from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.transforms import get_expon_lr_fn
 
 N_SPLIT = 2          # children per split surfel (gaussian_model.py:1229)
@@ -44,6 +45,7 @@ def strip_meta(camera):
     return dataclasses.replace(camera, uid=0, image_name="")
 
 
+@profiling.span("svgir.backward")
 def loss_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor],
                extra: List[torch.Tensor]):
     """The gradients of ``loss`` with respect to every parameter and to each
@@ -70,6 +72,7 @@ def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
     """
     bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
 
+    @profiling.span(profiling.STEP)
     def step(state, opt_state, camera, iteration, xyz_lr):
         alive, stats = state["alive"], state["stats"]
         cap = alive.shape[0]
@@ -84,17 +87,20 @@ def make_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig, bg, *,
         gp, (goff,) = loss_grads(res["loss"], params, [off])
 
         step_lrs = {**(lrs or {}), "xyz": xyz_lr}
-        new_params, opt_state = optim.adam_step(
-            {k: v.detach() for k, v in params.items()}, gp, opt_state,
-            step_lrs)
+        with profiling.span("svgir.optimizer"):
+            new_params, opt_state = optim.adam_step(
+                {k: v.detach() for k, v in params.items()}, gp, opt_state,
+                step_lrs)
 
         visible = res["visibility_filter"] & alive
         if track_stats:
             # densification stats: NDC-scale screen grads (backward.cu:639)
-            scale = goff.new_tensor([0.5 * camera.width, 0.5 * camera.height])
-            stats = G.add_densification_stats(
-                stats, goff * scale, visible, res["weights"].detach(),
-                res["radii"].to(torch.float32))
+            with profiling.span("svgir.stats"):
+                scale = goff.new_tensor([0.5 * camera.width,
+                                         0.5 * camera.height])
+                stats = G.add_densification_stats(
+                    stats, goff * scale, visible, res["weights"].detach(),
+                    res["radii"].to(torch.float32))
 
         tb = {k: v.detach() for k, v in res["tb_dict"].items()}
         tb["n_visible"] = visible.sum()
@@ -180,12 +186,15 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
                  test_interval: int = 0, vis_interval: int = 0,
                  auto_grow_instances: bool = True,
                  white_background: bool = False,
-                 split_noise: Optional[Callable] = None, device="cuda"):
+                 split_noise: Optional[Callable] = None,
+                 profile_window: Optional[profiling.StepWindow] = None,
+                 device="cuda"):
     """Run the stage-1 loop.  Returns (state, opt_state, history).
 
     ``split_noise(it, cap)`` -> [2, cap, 3] gives the split children's
     standard-normal draws at a densify iteration; by default they come
-    from a generator seeded by ``seed`` and ``it``.
+    from a generator seeded by ``seed`` and ``it``.  ``profile_window``
+    traces the iterations it names (``cli/train.py --profile_steps``).
     """
     iterations = iterations or opt.iterations
     lrs = optim.group_lrs(opt, spatial_lr_scale)
@@ -227,31 +236,38 @@ def train_stage1(state, cameras: List, opt: OptimizationConfig, *,
     t0 = time.time()
     overflow = None       # any frame since the last log line, on the device
     for it in range(first_iter + 1, iterations + 1):
+        if profile_window is not None:
+            profile_window.begin(it)
         cam = camera_for_iter(cams, it, seed)
         xyz_lr = float(xyz_sched(it))
         fn = step_fast if it >= opt.densify_until_iter else step_fn
         state, opt_state, tb = fn(state, opt_state, cam, float(it), xyz_lr)
         overflow = _any_overflow(overflow, tb)
         if it < opt.densify_until_iter:
-            state, opt_state = _densify_cadence(
-                it, state, opt_state, opt, extent, white_background,
-                split_noise)
+            with profiling.span("svgir.loop.densify"):
+                state, opt_state = _densify_cadence(
+                    it, state, opt_state, opt, extent, white_background,
+                    split_noise)
 
-        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
-                              vis_cam=cam)
+        with profiling.span("svgir.loop.periodic"):
+            extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
+                                  vis_cam=cam)
         if it % log_every == 0 or it == iterations or extras:
-            entry = {"iter": it, "psnr": float(tb["psnr"]),
-                     "loss": float(tb["loss"]),
-                     "n_alive": int(state["alive"].sum()),
-                     "elapsed": time.time() - t0, **extras}
-            if _overflowed(entry, overflow, it) and auto_grow_instances:
-                raster_cfg = _grow_instance_cap(raster_cfg)
-                step_fn = make(raster_cfg, True)
-                step_fast = make(raster_cfg, False)
-            overflow = None
-            history.append(entry)
-            if callback:
-                callback(entry, state)
+            with profiling.span("svgir.loop.log"):
+                entry = {"iter": it, "psnr": float(tb["psnr"]),
+                         "loss": float(tb["loss"]),
+                         "n_alive": int(state["alive"].sum()),
+                         "elapsed": time.time() - t0, **extras}
+                if _overflowed(entry, overflow, it) and auto_grow_instances:
+                    raster_cfg = _grow_instance_cap(raster_cfg)
+                    step_fn = make(raster_cfg, True)
+                    step_fast = make(raster_cfg, False)
+                overflow = None
+                history.append(entry)
+                if callback:
+                    callback(entry, state)
+        if profile_window is not None:
+            profile_window.end(it)
     return state, opt_state, history
 
 
@@ -344,6 +360,7 @@ def make_svgss_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig,
     """
     bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
 
+    @profiling.span(profiling.STEP)
     def step(state, opt_state, env_state, bake, camera, iteration, xyz_lr,
              radiance_lr):
         alive = state["alive"]
@@ -358,12 +375,13 @@ def make_svgss_train_step(opt: OptimizationConfig, raster_cfg: RasterConfig,
         gp, (genv,) = loss_grads(res["loss"], params, [env])
 
         step_lrs = {**(lrs or {}), "xyz": xyz_lr, "radiances": radiance_lr}
-        new_params, opt_state = optim.adam_step(
-            {k: v.detach() for k, v in params.items()}, gp, opt_state,
-            step_lrs)
-        new_env = LT.direct_light_map_step(
-            {"params": {"env": env.detach()}, "opt": env_state["opt"]},
-            {"env": genv}, opt.env_lr)
+        with profiling.span("svgir.optimizer"):
+            new_params, opt_state = optim.adam_step(
+                {k: v.detach() for k, v in params.items()}, gp, opt_state,
+                step_lrs)
+            new_env = LT.direct_light_map_step(
+                {"params": {"env": env.detach()}, "opt": env_state["opt"]},
+                {"env": genv}, opt.env_lr)
 
         tb = {k: v.detach() for k, v in res["tb_dict"].items()}
         tb["overflow"] = res["overflow"]
@@ -385,6 +403,7 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
                  out_dir: Optional[str] = None, checkpoint_interval: int = 0,
                  test_cameras: Optional[List] = None, test_interval: int = 0,
                  vis_interval: int = 0, auto_grow_instances: bool = True,
+                 profile_window: Optional[profiling.StepWindow] = None,
                  device="cuda"):
     """Stage-2 loop (train.py with is_pbr=True).  Returns (state,
     opt_state, env_state, bake, history).
@@ -397,6 +416,8 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
     and ``radiance_ratio`` are initialized from the bake when absent; a
     new env map draws from the loop's generator (after the bake's draws).
     Checkpoints carry the env map (``env=``) and the bake (``extra=``).
+    ``profile_window`` traces the iterations it names, as in
+    ``train_stage1``.
     """
     gen = torch.Generator(device=device).manual_seed(seed)
     params = dict(state["params"])
@@ -460,6 +481,8 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
     t0 = time.time()
     overflow = None
     for it in range(first_iter + 1, iterations + 1):
+        if profile_window is not None:
+            profile_window.begin(it)
         cam = camera_for_iter(cams, it, seed)
         xyz_lr = float(xyz_sched(it))
         state, opt_state, env_state, tb = step_fn(
@@ -471,22 +494,26 @@ def train_stage2(state, cameras: List, opt: OptimizationConfig, *,
         if it % 1000 == 0:
             radiance_lr = 0.0
 
-        extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
-                              vis_cam=cam)
+        with profiling.span("svgir.loop.periodic"):
+            extras = periodic.run(it, eval_fn=eval_fn, save_fn=save_fn,
+                                  vis_cam=cam)
         if it % log_every == 0 or it == iterations or extras:
-            entry = {"iter": it, "psnr": float(tb["psnr"]),
-                     "psnr_pbr": float(tb["psnr_pbr"]),
-                     "loss": float(tb["loss"]),
-                     "elapsed": time.time() - t0, **extras}
-            if _overflowed(entry, overflow, it) and auto_grow_instances:
-                raster_cfg = _grow_instance_cap(raster_cfg)
-                step_fn = make_svgss_train_step(
-                    opt, raster_cfg, bg, sh_degree=sh_degree, lrs=lrs,
-                    device=device)
-            overflow = None
-            history.append(entry)
-            if callback:
-                callback(entry, state, env_state)
+            with profiling.span("svgir.loop.log"):
+                entry = {"iter": it, "psnr": float(tb["psnr"]),
+                         "psnr_pbr": float(tb["psnr_pbr"]),
+                         "loss": float(tb["loss"]),
+                         "elapsed": time.time() - t0, **extras}
+                if _overflowed(entry, overflow, it) and auto_grow_instances:
+                    raster_cfg = _grow_instance_cap(raster_cfg)
+                    step_fn = make_svgss_train_step(
+                        opt, raster_cfg, bg, sh_degree=sh_degree, lrs=lrs,
+                        device=device)
+                overflow = None
+                history.append(entry)
+                if callback:
+                    callback(entry, state, env_state)
+        if profile_window is not None:
+            profile_window.end(it)
     return state, opt_state, env_state, bake, history
 
 
@@ -494,6 +521,7 @@ EXHAUSTED_TOL = 0.01    # share of bake rays that may use up their hit list
 MAX_K_HITS = 128        # the exhausted re-bake doubles k_hits up to this
 
 
+@profiling.span("svgir.bake")
 def bake_radiance_compact(params, alive, *, sample_num: int,
                           azimuth: Optional[torch.Tensor] = None,
                           k_hits: int = 16,

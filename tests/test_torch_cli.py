@@ -53,8 +53,11 @@ def test_parser_has_every_flag_of_train_py():
     import train as jax_cli
     ours = {a.dest: a for a in cli.build_parser()._actions}
     theirs = {a.dest: a for a in jax_cli.build_parser()._actions}
-    assert set(ours) - set(theirs) == {"device"}
+    assert set(ours) - set(theirs) == {"device", "profile_steps",
+                                       "profile_dir"}
     assert ours["device"].default == "cuda"
+    assert ours["profile_steps"].default is None
+    assert ours["profile_dir"].default is None
     for dest, a in theirs.items():
         b = ours[dest]
         assert (b.option_strings, b.default, b.type, b.choices) == \

@@ -11,9 +11,8 @@ the port's profiling helpers on the CPU.
 * ``run_standin_parity`` itself runs on the card (``chip_smoke.py``
   phase 31); here a few iterations of it run end to end with finite
   numbers.
-* ``utils/profiling``: ``Timing`` on CPU results, ``trace`` writes its
-  Chrome trace, ``ThroughputMeter``, and ``device_memory_stats`` of a
-  CPU device is {}.
+* ``utils/profiling``: ``trace`` writes its Chrome trace with the
+  spans in it, and the span registry records only inside it.
 """
 
 import json
@@ -117,19 +116,27 @@ def test_run_standin_parity_runs_end_to_end():
     assert all(np.isfinite(v) for v in out.values()), out
 
 
-def test_profiling_on_the_cpu(tmp_path, capsys):
-    with P.Timing("matmul") as t:
-        t.result = {"a": [torch.ones(64, 64) @ torch.ones(64, 64)]}
-    assert t.ms > 0 and "[timing] matmul" in capsys.readouterr().out
+def test_profiling_on_the_cpu(tmp_path):
+    P.reset()
+    with P.span(P.STEP), P.span("svgir.outside"):
+        torch.ones(8).sum()
+    assert P.summary()["spans"] == {}
     with P.trace(str(tmp_path / "prof")) as prof:
-        torch.ones(32, 32).sum()
+        with P.span(P.STEP):
+            with P.span("svgir.matmul"):
+                torch.ones(32, 32) @ torch.ones(32, 32)
+            P.count("host_syncs", 2)
     assert prof.key_averages()
+    assert {"svgir.step", "svgir.matmul"} <= {e.name for e in prof.events()}
+    s = P.summary()
+    assert s["steps"] == 1 and set(s["spans"]) == {"svgir.step",
+                                                    "svgir.matmul"}
+    assert s["spans"]["svgir.matmul"]["host_ms"] > 0
+    assert s["spans"]["svgir.matmul"]["device_ms"] is None
+    assert s["counters"]["host_syncs"] == {
+        "total": 2, "in_steps": 2, "by_span": {"svgir.step": 2}}
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
-    meter = P.ThroughputMeter(pixels_per_step=100)
-    assert meter.tick() is None
-    rates = meter.tick()
-    assert rates["pixels_per_s"] == pytest.approx(100 * rates["iters_per_s"])
-    assert P.device_memory_stats("cpu") == {}
-    assert P.device_memory_stats(torch.device("cpu")) == {}
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"svgir.step", "svgir.matmul"} <= names
+    P.reset()
     assert os.path.exists(tmp_path / "prof" / "trace.json")
