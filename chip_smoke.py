@@ -346,6 +346,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  [split] lines: every pixel or texel where a float32
                  version and float64 part, with its class.  Rows
                  ``*_recipe_size`` with each step's ms and peak memory.
+                 The S = 64 step launches each consistency kernel
+                 (csrc/consistency.cu) once.
+  36. consistency (run at the end of 35) the consistency loss's one-bounce
+                 kernels at the recipe's size: 524,288 rows, S = 64, in
+                 the compact bake's layout on phase 35's alive rows (dead
+                 rows: direction 0, hit -1; misses; a share of the hits on
+                 16 rows that many surfels hit; samples with hit_idx -1
+                 and >= 0), a cotangent zero on the dead rows.  The
+                 forward and the three gradients from the plain version
+                 (_hit_table + _irradiance_from_table) evaluated in
+                 float64 within TOL_CONSISTENCY_RATIO times the float32
+                 plain version's own error (or TOL_CONSISTENCY_FLOOR);
+                 the wrappers refuse a wrong dtype, shape and layout;
+                 both kernels timed beside their byte bound and the
+                 float32 plain version.  Rows ``consistency_*_recipe_size``.
 
 With --recipe-tables RUN the script builds the kernels and runs only the
 recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
@@ -383,6 +398,21 @@ import subprocess
 import sys
 import time
 
+# The consistency kernels against their plain version in float64, for each
+# output (forward, d_env_term, d_albedo, d_roughness), element by element
+# (of the output's largest magnitude) and in the norm (|err| / |ref|): the
+# kernels round in float32 and sum in another order (a warp's butterfly
+# over the samples, atomics across the surfels that hit one row).  Near a
+# specular peak GGX's denominator, NoH^2 (alpha^2 - 1) + 1, and the half
+# vector of nearly opposite directions amplify float32 rounding: on the
+# CPU the float32 plain version lay 2.4e-5 to 5.7e-4 from float64 by
+# these measures, a reordered float32 evaluation up to 2.4 times as far.
+# So each error is held to TOL_CONSISTENCY_RATIO times the float32 plain
+# version's on the same inputs, or TOL_CONSISTENCY_FLOOR where that is
+# larger.
+TOL_CONSISTENCY_RATIO = 4.0
+TOL_CONSISTENCY_FLOOR = 1e-4
+
 # B3/B4 tolerances (kernel vs plain, same inputs, same device).  The kernel
 # sums in another order (sequential per pixel, shuffle trees over pixels),
 # so channel sums and row reductions differ by float32 rounding; the
@@ -407,7 +437,9 @@ TOL_S2_GRAD = 2.5e-3    # of each gradient's largest magnitude
 STAGE1_KERNELS = ("binning_counts", "binning_instances", "blend_forward",
                   "blend_backward")
 STAGE2_KERNELS = STAGE1_KERNELS + ("env_lookup_forward",
-                                   "env_lookup_backward")
+                                   "env_lookup_backward",
+                                   "consistency_forward",
+                                   "consistency_backward")
 
 # B8 against its plain version: both round every operation of the surfel
 # test in the same order, so they should agree hit for hit; a slot may
@@ -5104,6 +5136,12 @@ def run_recipe_size(card, dev):
     cost = peak_ms(lambda: step2(*args2), label, card, "recipe-size", reps=5)
     c2, l2, bnd2, e3, e4 = held_step(lambda: step2(*args2), label,
                                      STAGE2_KERNELS)
+    c1_launches = {k: l2[k] for k in ("consistency_forward",
+                                      "consistency_backward")}
+    for k, v in c1_launches.items():
+        if v != 1:
+            raise AssertionError(f"recipe size, {label}: {k} launched "
+                                 f"{v} times, expected once")
     e7 = compare_env(c2, f"recipe size, {label}")
     split_env_backward(c2, f"recipe size, {label}", card)
     for k in ("compute_counts", "compute_instances"):   # rows of stage 1
@@ -5112,6 +5150,237 @@ def run_recipe_size(card, dev):
          dict(blend_forward=e3, blend_backward=e4, env_lookup_forward=e7[0],
               env_lookup_backward=e7[1]), cost, f"_s{BAKE_SAMPLES}")
     log(f"[recipe-size] {time.time() - t_phase:.1f} s; card: {card}")
+    alive = state["alive"]
+    del c2, args2, s2_state, bake, env, state
+    torch.cuda.empty_cache()
+    report.extend(run_consistency(card, dev, alive, c1_launches))
+    return report
+
+
+CONSISTENCY_MISS = 0.5      # share of an alive row's samples that miss
+CONSISTENCY_POPULAR = 16    # rows that take CONSISTENCY_CROWD of the hits
+CONSISTENCY_CROWD = 0.125
+
+
+def consistency_inputs(alive, samples, dev, seed=7):
+    """The one-bounce kernels' inputs in the compact bake's layout over the
+    rows ``alive`` [N]: dead rows direction 0, hit -1, uv 0; an alive
+    row's samples miss (hit -1) with probability CONSISTENCY_MISS, else
+    hit an alive row, CONSISTENCY_CROWD of them one of
+    CONSISTENCY_POPULAR rows; random env terms, unit vertex normals,
+    albedo in [0.03, 0.8], roughness in [0.09, 0.99] (get_base_color's
+    and get_roughness's ranges); one random sample a surfel.  Returns
+    (the kernels' nine inputs, a cotangent zero on the dead rows)."""
+    import torch
+
+    from svgir_tpu_torch.utils.transforms import normalize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, s = alive.shape[0], samples
+    rows = torch.nonzero(alive)[:, 0]
+    na = rows.numel()
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    def pick(*shape):
+        return rows[torch.randint(0, na, shape, generator=g, device=dev)]
+
+    target = pick(na, s)
+    popular = pick(CONSISTENCY_POPULAR)
+    crowd = popular[torch.randint(0, CONSISTENCY_POPULAR, (na, s),
+                                  generator=g, device=dev)]
+    target = torch.where(rand(na, s) < CONSISTENCY_CROWD, crowd, target)
+    target = torch.where(rand(na, s) < CONSISTENCY_MISS,
+                         torch.full_like(target, -1), target)
+    dirs = torch.zeros(n, s, 3, device=dev)
+    dirs[rows] = normalize(torch.randn(na, s, 3, generator=g, device=dev))
+    hit_idx = torch.full((n, s), -1, dtype=torch.int32, device=dev)
+    hit_idx[rows] = target.to(torch.int32)
+    uv = torch.zeros(n, s, 2, device=dev)
+    uv[rows] = rand(na, s, 2)
+    env_term = rand(n, s, 3) * (8 * math.pi / s)
+    normals = normalize(torch.randn(n, 4, 3, generator=g, device=dev))
+    albedo = rand(n, 4, 3) * 0.77 + 0.03
+    rough = rand(n) * 0.9 + 0.09
+    sidx = torch.randint(0, s, (n,), generator=g, device=dev)
+    ar = torch.arange(n, device=dev)
+    ins = (dirs, hit_idx, uv, env_term, normals, albedo, rough,
+           dirs[ar, sidx].contiguous(), hit_idx[ar, sidx].contiguous())
+    d_irr = torch.randn(n, 3, generator=g, device=dev) * alive[:, None]
+    return ins, d_irr
+
+
+def consistency_plain(ins, d_irr, dtype, chunk=1 << 16):
+    """The plain version (``_hit_table`` + ``_irradiance_from_table``) in
+    ``dtype``, the queries in chunks: (irr, d_env_term, d_albedo,
+    d_roughness)."""
+    import torch
+
+    from svgir_tpu_torch.models import radiance as RAD
+    dirs, hit_idx, uv, env_term, normals, albedo, rough, pri, hit = ins
+    n, s = hit_idx.shape
+    bake = {"incident_dirs": dirs.to(dtype), "hit_idx": hit_idx,
+            "uv": uv.to(dtype)}
+    leaves = [x.to(dtype).requires_grad_(True)
+              for x in (env_term, albedo, rough)]
+    nrm, pri, cot = normals.to(dtype), pri.to(dtype), d_irr.to(dtype)
+    irr = []
+    for c0 in range(0, n, chunk):
+        c = slice(c0, c0 + chunk)
+        table = RAD._hit_table(bake, leaves[0], nrm, leaves[1], leaves[2])
+        out = RAD._irradiance_from_table(table, pri[c], hit[c], s)
+        torch.autograd.backward(out, cot[c])
+        irr.append(out.detach())
+    return (torch.cat(irr), *(x.grad for x in leaves))
+
+
+def consistency_bounds(ins, d_irr):
+    """(forward, backward) least times in ms at 3.35 TB/s, counting what
+    these inputs need: every query's hit, the hit queries' directions and,
+    once for each distinct hit row, its S int32 hit_idx, 8 floats (the
+    direction, uv and env term) of each of its unoccluded samples and its
+    25 per-vertex floats; the forward writes the irradiance.  The backward
+    reads every query's cotangent, the same for the hit queries whose
+    cotangent is not zero, and writes the three gradients whole."""
+    import torch
+    hit_idx, hit = ins[1], ins[8]
+    n, s = hit_idx.shape
+    m = hit.shape[0]
+
+    def read(queries):
+        rows = torch.unique(hit[queries]).long()
+        unoccluded = int((hit_idx[rows] < 0).sum())
+        return (12 * int(queries.sum()) + rows.numel() * (s + 25) * 4
+                + unoccluded * 8 * 4), rows.numel(), unoccluded
+
+    fwd, rows, unoccluded = read(hit >= 0)
+    fwd += 4 * m + 12 * m
+    bwd = read((hit >= 0) & (d_irr != 0).any(1))[0] + 4 * m + 12 * m \
+        + n * (3 * s + 13) * 4
+    return fwd / 3.35e9, bwd / 3.35e9, {
+        "queries": m, "hit_queries": int((hit >= 0).sum()),
+        "hit_rows": rows, "unoccluded_samples": unoccluded}
+
+
+def run_consistency(card, dev, alive, launched):
+    """Phase 36: the consistency loss's one-bounce kernels against their
+    plain version in float64 at the recipe's size; their wrappers'
+    refusals; both timed beside their bound and the float32 plain version.
+    ``launched``: each kernel's launches in phase 35's S = 64 step.
+    Returns the kernels-JSON rows."""
+    import torch
+
+    from svgir_tpu_torch.kernels import consistency as KC
+    from svgir_tpu_torch.models import radiance as RAD
+
+    t_phase = time.time()
+    ins, d_irr = consistency_inputs(alive, BAKE_SAMPLES, dev)
+    n, s = ins[1].shape
+    (irr, grads), _ = counted(
+        lambda: (KC.consistency_forward(*ins),
+                 KC.consistency_backward(*ins, d_irr)), "consistency",
+        [("consistency_forward", 1), ("consistency_backward", 1)])
+    fwd_b, bwd_b, work = consistency_bounds(ins, d_irr)
+    log(f"[consistency] {n} rows ({int(alive.sum())} alive), S = {s}: "
+        f"{work['hit_queries']} of {work['queries']} surfels hit "
+        f"{work['hit_rows']} rows, {work['unoccluded_samples']} of their "
+        f"samples unoccluded; card: {card}")
+    ref = consistency_plain(ins, d_irr, torch.float64)
+    f32 = consistency_plain(ins, d_irr, torch.float32)
+
+    def norm_err(a, b):
+        return float((a.double() - b).norm() / b.norm().clamp(min=1e-30))
+
+    errs, bad = {}, []
+    for name, k, r, p in zip(("irr", "d_env_term", "d_albedo",
+                              "d_roughness"), (irr, *grads), ref, f32):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"consistency: non-finite {name}")
+        errs[name] = max_err_rel(k.double(), r)
+        e_norm = norm_err(k, r)
+        p_max, p_norm = max_err_rel(p.double(), r), norm_err(p, r)
+        if not (errs[name] <= max(TOL_CONSISTENCY_RATIO * p_max,
+                                  TOL_CONSISTENCY_FLOOR)
+                and e_norm <= max(TOL_CONSISTENCY_RATIO * p_norm,
+                                  TOL_CONSISTENCY_FLOOR)):
+            bad.append(name)
+        log(f"[consistency] {name}: kernel {errs[name]:.3g} of max "
+            f"{float(r.abs().max()):.4g}, {e_norm:.3g} in the norm, from "
+            "the float64 plain version; the float32 plain version "
+            f"{p_max:.3g} and {p_norm:.3g}")
+    if bool((irr[ins[8] < 0] != 0).any()):
+        raise AssertionError("consistency: a miss has a nonzero irradiance")
+    if bad:
+        raise AssertionError(f"consistency: {bad} past the tolerance "
+                             "(TOL_CONSISTENCY_RATIO, TOL_CONSISTENCY_FLOOR)")
+    del ref, f32
+
+    # the wrappers refuse what the kernels do not take
+    refusals = (
+        ("hit int64", lambda: KC.consistency_forward(
+            *ins[:8], ins[8].long())),
+        ("env_term float64", lambda: KC.consistency_forward(
+            *ins[:3], ins[3].double(), *ins[4:])),
+        ("env_term not contiguous", lambda: KC.consistency_forward(
+            *ins[:3], ins[3].transpose(0, 1).contiguous().transpose(0, 1),
+            *ins[4:])),
+        ("albedo [N, 12]", lambda: KC.consistency_forward(
+            *ins[:5], ins[5].reshape(n, 12), *ins[6:])),
+        ("d_irr on the CPU", lambda: KC.consistency_backward(
+            *ins, d_irr.cpu())),
+        ("irradiance_sample in float64", lambda: RAD.irradiance_sample(
+            torch.zeros(n, dtype=torch.long, device=dev),
+            {"incident_dirs": ins[0].double(), "hit_idx": ins[1],
+             "uv": ins[2].double()}, ins[3].double(), ins[4].double(),
+            ins[5].double(), ins[6].double())))
+    for what, fn in refusals:
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"consistency: the wrapper took {what}")
+    log("[consistency] the wrappers refuse: "
+        + ", ".join(w for w, _ in refusals))
+
+    # times: the kernels, and the float32 plain version (forward; the
+    # backward on a retained graph)
+    leaves = [x.clone().requires_grad_(True) for x in ins[3:7]]
+    bake = {"incident_dirs": ins[0], "hit_idx": ins[1], "uv": ins[2]}
+
+    def plain_fwd():
+        with torch.no_grad():
+            return RAD._irradiance_from_table(
+                RAD._hit_table(bake, *leaves), ins[7], ins[8], s)
+    plain_out = RAD._irradiance_from_table(
+        RAD._hit_table(bake, *leaves), ins[7], ins[8], s)
+    params = [leaves[0], leaves[2], leaves[3]]
+
+    def plain_bwd():
+        return torch.autograd.grad(plain_out, params, d_irr,
+                                   retain_graph=True)
+    report = []
+    with torch.no_grad():
+        for name, kfn, pfn, bnd in (
+                ("consistency_forward", lambda: KC.consistency_forward(*ins),
+                 plain_fwd, fwd_b),
+                ("consistency_backward",
+                 lambda: KC.consistency_backward(*ins, d_irr),
+                 plain_bwd, bwd_b)):
+            t = timings(kfn, pfn)
+            err = max(errs.values()) if name.endswith("backward") \
+                else errs["irr"]
+            report.append({
+                "name": f"{name}_recipe_size", "route": "cuda",
+                "source": "svgir_tpu_torch/csrc/consistency.cu",
+                "replaces": "none (svgir_tpu_torch/models/radiance.py "
+                            "_hit_table + _irradiance_from_table)",
+                "launches": launched[name], "max_abs_err": err, "oracle":
+                "plain version in float64", **t, "bound_ms": bnd,
+                "bound_by": "bytes", **work})
+            log(f"[consistency] {name}: " + fmt_times(t) + f", bound "
+                f"{bnd:.4f} ms by bytes; card: {card}")
+    del plain_out
+    log(f"[consistency] {time.time() - t_phase:.1f} s; card: {card}")
     return report
 
 
@@ -5624,7 +5893,7 @@ def main() -> int:
     t0 = time.time()
     build.build()
     for stem in ("binning", "blend_forward", "blend_backward", "cols",
-                 "env_lookup", "launch_floor", "march"):
+                 "consistency", "env_lookup", "launch_floor", "march"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")

@@ -17,9 +17,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from svgir_tpu_torch.kernels import consistency as KC
 from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models.lights import equirect_grid_coords
 from svgir_tpu_torch.ops import grid_tracer, tracing
+from svgir_tpu_torch.ops.common import on_cuda
 from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.graphics import fibonacci_sphere_sampling
 from svgir_tpu_torch.utils.transforms import normalize
@@ -175,6 +177,27 @@ def _irradiance_from_table(table: torch.Tensor, pri_dir: torch.Tensor,
     return torch.where(no_hit[:, None], torch.zeros_like(total), total)
 
 
+class _OneBounce(torch.autograd.Function):
+    """``irradiance_sample``'s one bounce on the card
+    (``csrc/consistency.cu``): the hit rows read in place, no table.
+    Gradients reach env_term, the albedo and the roughness; the backward
+    reads the forward's inputs again and saves nothing else."""
+
+    @staticmethod
+    def forward(ctx, dirs, hit_idx, uv, env_term, normals, albedo, roughness,
+                pri_dir, hit):
+        ins = (dirs, hit_idx, uv, env_term, normals, albedo, roughness,
+               pri_dir, hit)
+        ctx.save_for_backward(*ins)
+        return KC.consistency_forward(*ins)
+
+    @staticmethod
+    def backward(ctx, d_irr):
+        d_env, d_albedo, d_rough = KC.consistency_backward(
+            *ctx.saved_tensors, d_irr.contiguous())
+        return None, None, None, d_env, None, d_albedo, d_rough, None, None
+
+
 def irradiance_sample(sample_idx: torch.Tensor, bake: Dict,
                       env_term: torch.Tensor, vertex_normals: torch.Tensor,
                       vertex_albedo: torch.Tensor,
@@ -182,11 +205,21 @@ def irradiance_sample(sample_idx: torch.Tensor, bake: Dict,
     """One-bounce irradiance [N, 3] at one chosen sample per surfel
     (render_irradiance_sample).  sample_idx [N]; env_term [N, S, 3] (env
     radiance x incident area); vertex_normals [N, 4, 3]; vertex_albedo
-    [N, 4, 3]; roughness [N] (vertex 0)."""
+    [N, 4, 3]; roughness [N] (vertex 0).  On CUDA tensors the kernel pair
+    of ``csrc/consistency.cu``; on CPU tensors the plain version, a gather
+    of ``_hit_table``'s rows."""
     n, s = bake["hit_idx"].shape
     gidx = torch.arange(n, device=sample_idx.device)
     pri_dir = bake["incident_dirs"][gidx, sample_idx]        # [N, 3]
     hit = bake["hit_idx"][gidx, sample_idx]                  # [N]
+    if on_cuda(env_term):
+        return _OneBounce.apply(
+            bake["incident_dirs"].contiguous(),
+            bake["hit_idx"].to(torch.int32).contiguous(),
+            bake["uv"].contiguous(), env_term.contiguous(),
+            vertex_normals.detach().contiguous(), vertex_albedo.contiguous(),
+            roughness.contiguous(), pri_dir.contiguous(),
+            hit.to(torch.int32).contiguous())
     table = _hit_table(bake, env_term, vertex_normals, vertex_albedo,
                        roughness)
     return _irradiance_from_table(table, pri_dir, hit, s)
@@ -244,7 +277,9 @@ def irradiance_full(bake: Dict, env_term: torch.Tensor,
     ``render_irradiance``, calculate_radiance at gaussian_model.py:530-542):
     ``irradiance_sample`` for each sample index.
 
-    The [N, 9S+25] table is built once.  Only the (surfel, sample) pairs
+    The [N, 9S+25] table is built once, on either device: the card's
+    kernel pair (``_OneBounce``) serves the training step's one sample a
+    surfel only.  Only the (surfel, sample) pairs
     whose ray hit a surfel are shaded (the others are 0, as the reference's
     ``where`` makes them), in chunks of pairs sized so that a chunk's table
     rows and shading temporaries ([pairs, S, 4, 3] and its kin) stay near

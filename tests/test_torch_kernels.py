@@ -253,8 +253,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
     assert sorted(build._targets()) == ["binning", "blend_backward",
                                         "blend_forward", "cols",
-                                        "env_lookup", "launch_floor",
-                                        "march"]
+                                        "consistency", "env_lookup",
+                                        "launch_floor", "march"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 

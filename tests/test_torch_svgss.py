@@ -344,6 +344,127 @@ def test_consistency_picks_the_same_samples(scene):
     assert (top2[has, 1] - top2[has, 0]).min() > 1e-4
 
 
+def _one_bounce_inputs(bake, seed=5):
+    """irradiance_sample's inputs besides the bake: one sample a surfel,
+    env terms, unit vertex normals, albedo and roughness in the getters'
+    ranges, as numpy."""
+    n, s = bake["hit_idx"].shape
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(n, 4, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return dict(sample_idx=rng.integers(0, s, n),
+                env_term=rng.uniform(0, 3, (n, s, 3)).astype(np.float32),
+                normals=nrm,
+                albedo=rng.uniform(0.03, 0.8, (n, 4, 3)).astype(np.float32),
+                roughness=rng.uniform(0.09, 0.99, n).astype(np.float32))
+
+
+def _one_bounce_grads(bake, x, cot, fn=None):
+    """(irr, d_env_term, d_albedo, d_roughness) of ``fn`` (default
+    ``irradiance_sample``) on CPU tensors for the cotangent ``cot``."""
+    leaves = [_t(x[k]).requires_grad_(True)
+              for k in ("env_term", "albedo", "roughness")]
+    sidx = _t(x["sample_idx"])
+    if fn is None:
+        irr = TRAD.irradiance_sample(sidx, bake, leaves[0], _t(x["normals"]),
+                                     leaves[1], leaves[2])
+    else:
+        irr = fn(sidx, bake, leaves[0], _t(x["normals"]), leaves[1],
+                 leaves[2])
+    return (irr.detach(), *torch.autograd.grad(irr, leaves, _t(cot)))
+
+
+def test_consistency_misses_and_dead_rows_send_no_gradient(scene,
+                                                           monkeypatch):
+    """What the card's one-bounce kernel skips sends nothing on the plain
+    path: the gradients into env_term, albedo and roughness from surfels
+    whose hit is < 0 are exactly 0, zeroing their cotangent changes no bit
+    of the gradients, and the loss's alive mask gives the dead surfels
+    (some of them with a hit here) a cotangent of exactly 0."""
+    tcam, tb, tp, tenv, alive = _port_side(*scene)
+    n, s = tb["hit_idx"].shape
+    # the scene's rays rarely miss: make 40% of them miss
+    rng = np.random.default_rng(7)
+    tb = dict(tb, hit_idx=torch.where(_t(rng.random((n, s)) < 0.4), -1,
+                                      tb["hit_idx"]))
+    x = _one_bounce_inputs(tb)
+    hit = tb["hit_idx"][torch.arange(n), _t(x["sample_idx"])]
+    miss = (hit < 0).numpy()
+    assert miss.any() and not miss.all()
+    cot = rng.normal(size=(n, 3)).astype(np.float32)
+    only_miss = np.where(miss[:, None], cot, 0).astype(np.float32)
+    for g in _one_bounce_grads(tb, x, only_miss)[1:]:
+        assert float(g.abs().max()) == 0.0
+    full = _one_bounce_grads(tb, x, cot)
+    kept = _one_bounce_grads(tb, x, np.where(miss[:, None], 0, cot).astype(
+        np.float32))
+    for a, b in zip(full, kept):
+        assert torch.equal(a, b)
+    assert float(full[0][torch.as_tensor(miss)].abs().max()) == 0.0
+
+    seen = {}
+    plain = TRAD.irradiance_sample
+
+    def spy(*args):
+        seen["irr"] = out = plain(*args)
+        out.retain_grad()
+        return out
+    monkeypatch.setattr(TRAD, "irradiance_sample", spy)
+    names = ("base_color", "roughness")
+    p = {k: v.clone().requires_grad_(k in names) for k, v in tp.items()}
+    e = {"env": tenv["env"].clone().requires_grad_(True)}
+    TRAD.radiance_consistency_loss(
+        p, tb, tcam.camera_center, lambda d: TLT.direct_light(e, d),
+        alive=alive, env_radiance=TLT.direct_light_qxy(
+            e, tb["incident_qxy"][..., 0], tb["incident_qxy"][..., 1])
+    ).backward()
+    g = seen["irr"].grad
+    dead = ~alive
+    assert bool(dead.any()) and bool((tb["hit_idx"][dead] >= 0).any())
+    assert float(g[dead].abs().max()) == 0.0
+    assert float(g[alive].abs().max()) > 0.0
+
+
+def test_irradiance_sample_takes_the_plain_version_on_the_cpu(scene):
+    """On CPU tensors ``irradiance_sample`` runs the plain version
+    (``_hit_table`` + ``_irradiance_from_table``), bit for bit, launches no
+    kernel, and agrees with svgir_tpu's within 1e-5."""
+    from svgir_tpu_torch import kernels
+    _, jb, _, _ = _jax_side(*scene)
+    _, tb, _, _, _ = _port_side(*scene)
+    n, s = tb["hit_idx"].shape
+    x = _one_bounce_inputs(tb, seed=8)
+    cot = np.random.default_rng(9).normal(size=(n, 3)).astype(np.float32)
+
+    def table_path(sidx, bake, env_term, normals, albedo, rough):
+        gidx = torch.arange(n)
+        table = TRAD._hit_table(bake, env_term, normals, albedo, rough)
+        return TRAD._irradiance_from_table(
+            table, bake["incident_dirs"][gidx, sidx],
+            bake["hit_idx"][gidx, sidx], s)
+
+    kernels.reset_launches()
+    got = _one_bounce_grads(tb, x, cot)
+    assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
+    want = _one_bounce_grads(tb, x, cot, table_path)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[0].abs().max()) > 0.0
+
+    def jfn(env_term, albedo, rough):
+        irr = JRAD.irradiance_sample(jnp.asarray(x["sample_idx"]), jb,
+                                     env_term, jnp.asarray(x["normals"]),
+                                     albedo, rough)
+        return (irr * cot).sum(), irr
+
+    (_, jirr), jg = jax.jit(jax.value_and_grad(
+        jfn, argnums=(0, 1, 2), has_aux=True))(
+            *(jnp.asarray(x[k]) for k in ("env_term", "albedo", "roughness")))
+    _rel(got[0].numpy(), jirr, 1e-5, "irr")
+    for k, a, b in zip(("env_term", "albedo", "roughness"), got[1:], jg):
+        _rel(a.numpy(), b, 1e-5, k)
+
+
 def test_fibonacci_sampling_and_srgb_match():
     rng = np.random.default_rng(2)
     nrm = rng.normal(size=(50, 3)).astype(np.float32)
