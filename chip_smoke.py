@@ -361,6 +361,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  the wrappers refuse a wrong dtype, shape and layout;
                  both kernels timed beside their byte bound and the
                  float32 plain version.  Rows ``consistency_*_recipe_size``.
+  37. shading    (run at the end of 36) stage 2's training shading
+                 kernels (csrc/shading.cu) at the recipe's size: 524,288
+                 rows, S = 64, in the compact bake's layout on phase 35's
+                 alive rows (dead rows: radiance 0, visibility 1, area
+                 2 pi, direction 0, cotangent 0), env values past both
+                 clamps, the roughness's ends, normals facing away.  pbr,
+                 diffuse light and the six gradients from the plain
+                 version (shade_train_*_plain) in float64, each within
+                 TOL_SHADING_RATIO times the float32 plain version's own
+                 error (or TOL_SHADING_FLOOR); dead rows' gradients
+                 exactly 0; two runs bit-equal (no atomics); the wrappers
+                 and shade_train refuse what the kernels do not take;
+                 both kernels timed beside their byte bound and the
+                 float32 plain version.  Phase 35's S = 64 step launches
+                 each once.  Rows ``shading_*_recipe_size``.
 
 With --recipe-tables RUN the script builds the kernels and runs only the
 recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
@@ -412,6 +427,16 @@ import time
 # larger.
 TOL_CONSISTENCY_RATIO = 4.0
 TOL_CONSISTENCY_FLOOR = 1e-4
+# The training shading kernels against their plain version in float64, for
+# each output (pbr, diffuse light, the six gradients), element by element
+# (of the output's largest magnitude) and in the norm: the kernels round in
+# float32, contract products into fused multiply-adds and sum over S in
+# another order (each lane's samples, then a fixed shuffle tree), with no
+# atomics.  Each error is held to TOL_SHADING_RATIO times the float32
+# plain version's on the same inputs, or TOL_SHADING_FLOOR (a few float32
+# ulp) where that is larger.
+TOL_SHADING_RATIO = 2.0
+TOL_SHADING_FLOOR = 1e-6
 
 # B3/B4 tolerances (kernel vs plain, same inputs, same device).  The kernel
 # sums in another order (sequential per pixel, shuffle trees over pixels),
@@ -439,7 +464,8 @@ STAGE1_KERNELS = ("binning_counts", "binning_instances", "blend_forward",
 STAGE2_KERNELS = STAGE1_KERNELS + ("env_lookup_forward",
                                    "env_lookup_backward",
                                    "consistency_forward",
-                                   "consistency_backward")
+                                   "consistency_backward",
+                                   "shading_forward", "shading_backward")
 
 # B8 against its plain version: both round every operation of the surfel
 # test in the same order, so they should agree hit for hit; a slot may
@@ -5045,7 +5071,8 @@ def run_recipe_size(card, dev):
     plain version in float64, ``compare_blend(exact=True)``; ``split_blend``
     and ``split_env_backward`` log where the float32 versions part), timed
     beside its bound and library yardstick; each step's ms and peak
-    memory.  Returns the kernels-JSON rows, named ``*_recipe_size``."""
+    memory; then phases 36 and 37 on its alive rows.  Returns the
+    kernels-JSON rows, named ``*_recipe_size``."""
     import torch
 
     from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
@@ -5136,9 +5163,11 @@ def run_recipe_size(card, dev):
     cost = peak_ms(lambda: step2(*args2), label, card, "recipe-size", reps=5)
     c2, l2, bnd2, e3, e4 = held_step(lambda: step2(*args2), label,
                                      STAGE2_KERNELS)
-    c1_launches = {k: l2[k] for k in ("consistency_forward",
-                                      "consistency_backward")}
-    for k, v in c1_launches.items():
+    pair_launches = {k: l2[k] for k in ("consistency_forward",
+                                        "consistency_backward",
+                                        "shading_forward",
+                                        "shading_backward")}
+    for k, v in pair_launches.items():
         if v != 1:
             raise AssertionError(f"recipe size, {label}: {k} launched "
                                  f"{v} times, expected once")
@@ -5153,7 +5182,9 @@ def run_recipe_size(card, dev):
     alive = state["alive"]
     del c2, args2, s2_state, bake, env, state
     torch.cuda.empty_cache()
-    report.extend(run_consistency(card, dev, alive, c1_launches))
+    report.extend(run_consistency(card, dev, alive, pair_launches))
+    torch.cuda.empty_cache()
+    report.extend(run_shading(card, dev, alive, pair_launches))
     return report
 
 
@@ -5381,6 +5412,187 @@ def run_consistency(card, dev, alive, launched):
                 f"{bnd:.4f} ms by bytes; card: {card}")
     del plain_out
     log(f"[consistency] {time.time() - t_phase:.1f} s; card: {card}")
+    return report
+
+
+SHADING_VISIBLE = 0.7       # share of an alive row's samples visible
+
+
+def shading_inputs(alive, samples, dev, seed=11):
+    """The training shading's nine inputs in the compact bake's layout over
+    the rows ``alive`` [N]: dead rows radiance 0, visibility 1, area 2 pi,
+    direction 0 (``bake_radiance_compact``'s fill); alive rows unit
+    directions, areas 4 pi / S, visibility 1 with probability
+    SHADING_VISIBLE, radiance in [0, 2); env radiance in [-4, 80) on every
+    row (past both clamps); base colour in [0.03, 0.8], roughness in
+    [0.09, 0.99] with a row at each end, unit normals (about half facing
+    away from the view), unit view directions.  Returns (the inputs, d_pbr,
+    d_diffuse_light), the cotangents zero on the dead rows."""
+    import torch
+
+    from svgir_tpu_torch.utils.transforms import normalize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, s = alive.shape[0], samples
+    live = alive[:, None, None]
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    def unit(*shape):
+        return normalize(torch.randn(*shape, 3, generator=g, device=dev))
+
+    rough = rand(n, 4) * 0.9 + 0.09
+    ends = torch.nonzero(alive)[:2, 0]
+    rough[ends[0]], rough[ends[1]] = 0.09, 0.99
+    ins = (rand(n, 12) * 0.77 + 0.03, rough, unit(n, 4), unit(n),
+           torch.where(live, rand(n, s, 3) * 2, 0.0),
+           rand(n, s, 3) * 84 - 4,
+           torch.where(live, (rand(n, s, 1) < SHADING_VISIBLE).float(), 1.0),
+           torch.where(live, unit(n, s), 0.0),
+           torch.where(live, torch.full((n, s, 1), 4 * math.pi / s,
+                                        device=dev), 2 * math.pi))
+    cot = [torch.randn(n, 12, generator=g, device=dev) * alive[:, None]
+           for _ in range(2)]
+    return ins, cot[0], cot[1]
+
+
+def shading_bounds(ins, d_pbr, d_dl):
+    """(forward, backward) least times in ms at 3.35 TB/s, and the live
+    rows: the forward reads 11 floats a (row, sample) and 31 a row and
+    writes 24; the backward reads every row's 24 cotangent floats, the
+    forward's inputs of the rows whose cotangent is not zero, and writes
+    the six gradients whole (6 S + 31 floats a row)."""
+    n, s = ins[4].shape[:2]
+    live = int(((d_pbr != 0).any(1) | (d_dl != 0).any(1)).sum())
+    fwd = n * (11 * s + 31 + 24) * 4
+    bwd = (n * 24 + live * (11 * s + 31) + n * (6 * s + 31)) * 4
+    return fwd / 3.35e9, bwd / 3.35e9, live
+
+
+def shading_plain(ins, d_pbr, d_dl, dtype):
+    """The plain version in ``dtype``: (pbr, diffuse light, d_base_color,
+    d_roughness, d_normals, d_viewdirs, d_radiance, d_env_radiance)."""
+    from svgir_tpu_torch.ops import shading as SH
+    x = [t.to(dtype) for t in ins]
+    return SH.shade_train_forward_plain(*x) + SH.shade_train_backward_plain(
+        *x, d_pbr.to(dtype), d_dl.to(dtype))
+
+
+SHADING_OUTPUTS = ("pbr", "diffuse_light", "d_base_color", "d_roughness",
+                   "d_normals", "d_viewdirs", "d_radiance", "d_env_radiance")
+
+
+def run_shading(card, dev, alive, launched):
+    """Phase 37: stage 2's training shading kernels against their plain
+    version in float64 at the recipe's size; their determinism and dead
+    rows; the wrappers' and shade_train's refusals; both timed beside
+    their byte bound and the float32 plain version.  ``launched``: each
+    kernel's launches in phase 35's S = 64 step.  Returns the kernels-JSON
+    rows."""
+    import torch
+
+    from svgir_tpu_torch.kernels import shading as KS
+    from svgir_tpu_torch.ops import shading as SH
+
+    t_phase = time.time()
+    ins, d_pbr, d_dl = shading_inputs(alive, BAKE_SAMPLES, dev)
+    n, s = ins[4].shape[:2]
+    (fwd, bwd), _ = counted(
+        lambda: (KS.shading_forward(*ins),
+                 KS.shading_backward(*ins, d_pbr, d_dl)), "shading",
+        [("shading_forward", 1), ("shading_backward", 1)])
+    outs = fwd + bwd
+    fwd_b, bwd_b, live = shading_bounds(ins, d_pbr, d_dl)
+    log(f"[shading] {n} rows ({int(alive.sum())} alive, {live} with a "
+        f"cotangent), S = {s}; env above 64 "
+        f"{float((ins[5] > 64).float().mean()):.4f}, below 0 "
+        f"{float((ins[5] < 0).float().mean()):.4f} of its values; card: "
+        f"{card}")
+    again = KS.shading_forward(*ins) + KS.shading_backward(*ins, d_pbr, d_dl)
+    if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+        raise AssertionError("shading: two runs of the kernels differ")
+    dead = ~alive
+    for name, gr in zip(SHADING_OUTPUTS[2:], bwd):
+        if bool((gr[dead] != 0).any()):
+            raise AssertionError(f"shading: {name} is not 0 on a dead row")
+    del again
+    ref = shading_plain(ins, d_pbr, d_dl, torch.float64)
+    f32 = shading_plain(ins, d_pbr, d_dl, torch.float32)
+
+    def norm_err(a, b):
+        return float((a.double() - b).norm() / b.norm().clamp(min=1e-30))
+
+    errs, bad = {}, []
+    for name, k, r, p in zip(SHADING_OUTPUTS, outs, ref, f32):
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"shading: non-finite {name}")
+        errs[name] = max_err_rel(k.double(), r)
+        e_norm = norm_err(k, r)
+        p_max, p_norm = max_err_rel(p.double(), r), norm_err(p, r)
+        if not (errs[name] <= max(TOL_SHADING_RATIO * p_max,
+                                  TOL_SHADING_FLOOR)
+                and e_norm <= max(TOL_SHADING_RATIO * p_norm,
+                                  TOL_SHADING_FLOOR)):
+            bad.append(name)
+        log(f"[shading] {name}: kernel {errs[name]:.3g} of max "
+            f"{float(r.abs().max()):.4g}, {e_norm:.3g} in the norm, from "
+            "the float64 plain version; the float32 plain version "
+            f"{p_max:.3g} and {p_norm:.3g}")
+    if bad:
+        raise AssertionError(f"shading: {bad} past the tolerance "
+                             "(TOL_SHADING_RATIO, TOL_SHADING_FLOOR)")
+    del ref, f32, outs, fwd, bwd
+
+    # the wrappers refuse what the kernels do not take, shade_train a
+    # gradient on the bake
+    refusals = (
+        ("base_color float64", lambda: KS.shading_forward(
+            ins[0].double(), *ins[1:])),
+        ("normals [N, 12]", lambda: KS.shading_forward(
+            *ins[:2], ins[2].reshape(n, 12), *ins[3:])),
+        ("env_radiance not contiguous", lambda: KS.shading_forward(
+            *ins[:5], ins[5].transpose(0, 1).contiguous().transpose(0, 1),
+            *ins[6:])),
+        ("d_pbr on the CPU", lambda: KS.shading_backward(
+            *ins, d_pbr.cpu(), d_dl)),
+        ("shade_train in float64", lambda: SH.shade_train(
+            *(t.double() for t in ins))),
+        ("a gradient on the visibility", lambda: SH.shade_train(
+            *ins[:6], ins[6].clone().requires_grad_(True), *ins[7:])))
+    for what, fn in refusals:
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"shading: the wrapper took {what}")
+    log("[shading] refused: " + ", ".join(w for w, _ in refusals))
+
+    # times: the kernels, and the float32 plain version
+    report = []
+    with torch.no_grad():
+        for name, kfn, pfn, bnd in (
+                ("shading_forward", lambda: KS.shading_forward(*ins),
+                 lambda: SH.shade_train_forward_plain(*ins), fwd_b),
+                ("shading_backward",
+                 lambda: KS.shading_backward(*ins, d_pbr, d_dl),
+                 lambda: SH.shade_train_backward_plain(*ins, d_pbr, d_dl),
+                 bwd_b)):
+            t = timings(kfn, pfn)
+            err = errs["pbr"] if name.endswith("forward") else max(
+                errs[k] for k in SHADING_OUTPUTS[2:])
+            report.append({
+                "name": f"{name}_recipe_size", "route": "cuda",
+                "source": "svgir_tpu_torch/csrc/shading.cu",
+                "replaces": "none (svgir_tpu_torch/ops/shading.py "
+                            "rendering_equation4 and its autograd backward)",
+                "launches": launched[name], "max_abs_err": err, "oracle":
+                "plain version in float64", **t, "bound_ms": bnd,
+                "bound_by": "bytes", "rows": n, "samples": s,
+                "live_rows": live})
+            log(f"[shading] {name}: " + fmt_times(t) + f", bound "
+                f"{bnd:.4f} ms by bytes ({100 * bnd / t['device_ms']:.1f}%"
+                f"); card: {card}")
+    log(f"[shading] {time.time() - t_phase:.1f} s; card: {card}")
     return report
 
 
@@ -5893,7 +6105,8 @@ def main() -> int:
     t0 = time.time()
     build.build()
     for stem in ("binning", "blend_forward", "blend_backward", "cols",
-                 "consistency", "env_lookup", "launch_floor", "march"):
+                 "consistency", "env_lookup", "launch_floor", "march",
+                 "shading"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")

@@ -16,7 +16,8 @@ KERNEL_NAMES = ("binning_counts", "binning_instances", "blend_forward",
                 "blend_backward", "blend_forward_tiles", "blend_backward_tiles",
                 "env_lookup_forward", "env_lookup_backward", "march",
                 "pad_cols", "slice_cols", "consistency_forward",
-                "consistency_backward")
+                "consistency_backward", "shading_forward",
+                "shading_backward")
 
 
 def reset_launches() -> None:

@@ -1,9 +1,10 @@
 """Stage-2 ("render_relight") forward and loss: the deferred-PBR mode.
 
 Mirrors ``svgir_tpu.render.svgss`` (reference
-``gaussian_renderer/svgss.py``): shade each surfel's 4 vertices with
-``rendering_equation4`` over the baked incident radiance and the learnable
-env, before rasterization; blend the features [visibility (1), local
+``gaussian_renderer/svgss.py``): shade each surfel's 4 vertices over the
+baked incident radiance and the learnable env, before rasterization (train:
+``shade_train``, which gives pbr and the diffuse light only; eval:
+``rendering_equation4``); blend the features [visibility (1), local
 lights (3)] (train, S = 4) and the vertex features [pbr (12), base color
 (12), view normal (12), roughness (4), diffuse light (12)] (VS = 52; eval
 blends [lights, local lights, visibility] (S = 7) and adds direct and
@@ -29,7 +30,7 @@ from svgir_tpu_torch.models import gaussians as G
 from svgir_tpu_torch.models import lights as LT
 from svgir_tpu_torch.models import radiance as RAD
 from svgir_tpu_torch.ops.rasterizer import rasterize
-from svgir_tpu_torch.ops.shading import rendering_equation4
+from svgir_tpu_torch.ops.shading import rendering_equation4, shade_train
 from svgir_tpu_torch.utils import losses as L
 from svgir_tpu_torch.utils import profiling
 from svgir_tpu_torch.utils.graphics import rgb_to_srgb
@@ -88,15 +89,22 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
             env_radiance = env_fn(bake["incident_dirs"])
 
         mark = profiling.layer("svgir.shading")
-        pbr, extra = profiling.layer_out(mark, rendering_equation4(
-            base_color, roughness, shading_normal, viewdirs, radiances,
-            env_fn, bake["visibility"], bake["incident_dirs"],
-            bake["incident_areas"], env_radiance=env_radiance))
+        if is_training:
+            # the step reads pbr and the diffuse light only
+            pbr, diffuse_light = profiling.layer_out(mark, shade_train(
+                base_color, roughness, shading_normal, viewdirs, radiances,
+                env_radiance, bake["visibility"], bake["incident_dirs"],
+                bake["incident_areas"]))
+        else:
+            pbr, extra = profiling.layer_out(mark, rendering_equation4(
+                base_color, roughness, shading_normal, viewdirs, radiances,
+                env_fn, bake["visibility"], bake["incident_dirs"],
+                bake["incident_areas"], env_radiance=env_radiance))
+            diffuse_light = extra["diffuse_light"]
 
     if is_training:
-        features = torch.cat([
-            extra["incident_visibility"].mean(-2),
-            extra["local_incident_lights"].mean(-2)], dim=-1)   # S = 4
+        features = torch.cat([bake["visibility"].mean(-2),
+                              radiances.mean(-2)], dim=-1)       # S = 4
     else:
         features = torch.cat([
             extra["incident_lights"].mean(-2),
@@ -108,7 +116,7 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
     nrm_view = nrm_view.transpose(1, 2).reshape(n, -1)
     if is_training:
         vfeatures = torch.cat(
-            [pbr, base_color, nrm_view, roughness, extra["diffuse_light"]],
+            [pbr, base_color, nrm_view, roughness, diffuse_light],
             dim=-1)                                              # VS = 52
     else:
         vfeatures = torch.cat(
@@ -141,7 +149,7 @@ def render_view_svgss(camera, params, bake: Dict, env_params,
         "visibility_filter": bufs.radii > 0,
         "n_contrib": bufs.n_contrib,
         "overflow": bufs.overflow,
-        "diffuse_light": extra["diffuse_light"],
+        "diffuse_light": diffuse_light,
         "_env_radiance": env_radiance,
     }
 

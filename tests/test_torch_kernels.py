@@ -254,7 +254,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert sorted(build._targets()) == ["binning", "blend_backward",
                                         "blend_forward", "cols",
                                         "consistency", "env_lookup",
-                                        "launch_floor", "march"]
+                                        "launch_floor", "march",
+                                        "shading"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 
