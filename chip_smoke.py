@@ -376,6 +376,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  both kernels timed beside their byte bound and the
                  float32 plain version.  Phase 35's S = 64 step launches
                  each once.  Rows ``shading_*_recipe_size``.
+  38. preprocess (run at the end of 37) the rasterizer's preprocess kernels
+                 P1 (csrc/preprocess.cu) on phase 35's stage-1 inputs
+                 (524,288 rows, SH degree 3) at 800x800 and from the same
+                 pose at 512x512: valid, radius, rects and tiles_touched
+                 equal to the float32 plain version, or each differing row
+                 listed with its nearest deciding quantity within
+                 PREP_ULPS ulp of its threshold, on at most
+                 PREP_FLIP_SHARE of the rows; every float output and
+                 gradient (cotangents on the alive rows that pass the
+                 culls) within TOL_PREP_RATIO times the float32 plain
+                 version's distance from the plain forward in float64 and
+                 autograd's gradients through it, or TOL_PREP_FLOOR; two runs bit-equal; the wrappers'
+                 refusals; both kernels timed beside their byte bound,
+                 with registers and spills; P.preprocess refuses float64
+                 CUDA tensors; the stage-1 render through ``_dilation``
+                 launches P1 at 0.3 px^2 and not at 0.3/16, and records
+                 other variances at each.  Rows
+                 ``preprocess_*_recipe_size`` (launches from phase 35's
+                 stage-1 step).
 
 With --recipe-tables RUN the script builds the kernels and runs only the
 recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
@@ -388,9 +407,12 @@ DIR, the profiles
 of three steps of each stage and of the bake; and ``[recipe-scale]``:
 the stage-1 checkpoint's test PSNR at eval_nvs's scale 4, at scale 1,
 pooled from scale 1, and at scale 4 with the screen-space dilation cut
-to its scale-1 size.  A row's ``launches`` counts this run's one step
-(or bake) of the row; ``recipe_run_launches`` the schedule's, from RUN's
-schedule.json.  A disagreement with a plain version is logged, named
+to its scale-1 size (the preprocess's plain route, which ``_dilation``
+patches, since P1 holds 0.3 px^2 in its source; the renders at 0.3 px^2
+take P1, as eval_nvs does; the check fails unless the dilated render's
+variances differ).  A
+row's ``launches`` counts this run's one step (or bake) of the row;
+``recipe_run_launches`` the schedule's, from RUN's schedule.json.  A disagreement with a plain version is logged, named
 in the row's ``disagrees`` and fails the run after the tables.  That
 mode ends with the kernels JSON and the card's line, and without the
 result line: it runs none of the phases.
@@ -460,7 +482,8 @@ TOL_S2_DEPTH = 5e-4     # relative
 TOL_S2_GRAD = 2.5e-3    # of each gradient's largest magnitude
 
 STAGE1_KERNELS = ("binning_counts", "binning_instances", "blend_forward",
-                  "blend_backward")
+                  "blend_backward", "preprocess_forward",
+                  "preprocess_backward")
 STAGE2_KERNELS = STAGE1_KERNELS + ("env_lookup_forward",
                                    "env_lookup_backward",
                                    "consistency_forward",
@@ -4276,7 +4299,8 @@ PAR_STEPS = 10          # timed repetitions of each parallel path
 PAR_KR = 12 + 9 + 5     # slab columns at the stage-1 widths (S = 5)
 PAR_CO = 9 + 5 + 3      # blend output channels at those widths
 GSHARD_KERNELS = ("binning_counts", "binning_instances",
-                  "blend_forward_tiles", "blend_backward_tiles")
+                  "blend_forward_tiles", "blend_backward_tiles",
+                  "preprocess_forward", "preprocess_backward")
 
 
 def par_inputs(state, cam):
@@ -5071,8 +5095,9 @@ def run_recipe_size(card, dev):
     plain version in float64, ``compare_blend(exact=True)``; ``split_blend``
     and ``split_env_backward`` log where the float32 versions part), timed
     beside its bound and library yardstick; each step's ms and peak
-    memory; then phases 36 and 37 on its alive rows.  Returns the
-    kernels-JSON rows, named ``*_recipe_size``."""
+    memory; then phases 36 and 37 on its alive rows and phase 38 on its
+    stage-1 inputs.  Returns the kernels-JSON rows, named
+    ``*_recipe_size``."""
     import torch
 
     from svgir_tpu_torch.config import OptimizationConfig, RasterConfig
@@ -5179,12 +5204,14 @@ def run_recipe_size(card, dev):
          dict(blend_forward=e3, blend_backward=e4, env_lookup_forward=e7[0],
               env_lookup_backward=e7[1]), cost, f"_s{BAKE_SAMPLES}")
     log(f"[recipe-size] {time.time() - t_phase:.1f} s; card: {card}")
-    alive = state["alive"]
+    alive, params = state["alive"], state["params"]
     del c2, args2, s2_state, bake, env, state
     torch.cuda.empty_cache()
     report.extend(run_consistency(card, dev, alive, pair_launches))
     torch.cuda.empty_cache()
     report.extend(run_shading(card, dev, alive, pair_launches))
+    torch.cuda.empty_cache()
+    report.extend(run_preprocess(card, dev, params, alive, cam, l1))
     return report
 
 
@@ -5596,6 +5623,373 @@ def run_shading(card, dev, alive, launched):
     return report
 
 
+# The preprocess kernels (P1) against the plain version: the integer
+# outputs equal to the float32 plain version's, or a row's nearest deciding
+# quantity within PREP_ULPS float32 ulp of its threshold, on at most
+# PREP_FLIP_SHARE of the rows (the kernel forms every value they depend on
+# as the plain version does on the card, but PyTorch's reductions and
+# cuBLAS's products may order a sum otherwise); every float output and
+# gradient from the plain forward in float64 and autograd's gradients
+# through it within TOL_PREP_RATIO times the float32 plain version's
+# distance, or TOL_PREP_FLOOR of its largest magnitude.
+PREP_ULPS = 2
+PREP_FLIP_SHARE = 1e-5
+TOL_PREP_RATIO = 2.0
+TOL_PREP_FLOOR = 1e-6
+PREP_OUTPUTS = ("mean2d", "depth", "conic", "normal_view", "jinv", "lam",
+                "rgb", "view_cos")
+PREP_GRADS = ("d_means3d", "d_scales", "d_quats", "d_shs")
+
+
+def ptxas_preprocess(text):
+    """Registers and spills of each P1 instantiation in ``ptxas -v`` output:
+    {(direction, template arguments): {...}}."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            m = re.search(r"svgir_preprocess_(fwd|bwd)_kernelI((?:L[ib]n?\d+E)+)E",
+                          line)
+            cur = None
+            if m:
+                args = tuple(int(x.replace("n", "-")) for x in
+                             re.findall(r"L[ib](n?\d+)E", m[2]))
+                cur = ("forward" if m[1] == "fwd" else "backward", args)
+                out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    return out
+
+
+def preprocess_deciders(means, scales, quats, wv, fp, kw):
+    """Each float32 quantity an integer output of the plain version turns
+    on, formed as the plain version forms it, with its threshold: {name:
+    (value [N], threshold [N])}."""
+    import torch
+
+    from svgir_tpu_torch.ops import preprocess as P
+    from svgir_tpu_torch.utils.transforms import quat_to_rotmat
+    cfg, w, h = kw["cfg"], kw["width"], kw["height"]
+    n, tile = means.shape[0], cfg.tile
+    hom = torch.cat([means, means.new_ones(n, 1)], -1)
+    p_hom = hom @ fp.T
+    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+    p_proj = p_hom[:, :3] * p_w[:, None]
+    px = ((p_proj[:, 0] + 1.0) * w - 1.0) * 0.5
+    py = ((p_proj[:, 1] + 1.0) * h - 1.0) * 0.5
+    pv = (hom @ wv.T)[:, :3]
+    R = quat_to_rotmat(quats)
+    W = wv[:3, :3]
+    nv = R[..., :, 2] @ W.T
+    pz = torch.where(pv[:, 2] == 0, torch.full_like(pv[:, 2], 1e-6),
+                     pv[:, 2])
+    prj = pv[:, :2] / pz[:, None]
+    graze = []
+    for axis in (0, 1):
+        cols = [prj[:, 0], prj[:, 1], torch.ones_like(pz)]
+        cols[axis] = cols[axis] + 1.0 / P.S_FIX
+        d = torch.stack(cols, -1)
+        mod = torch.clamp(d.norm(dim=-1), min=1e-8)
+        graze.append(((d / mod[:, None] * nv).sum(-1) / mod).abs())
+    s = scales * kw["scale_modifier"]
+    if cfg.surface:
+        s = torch.cat([s[:, :2], torch.zeros_like(s[:, 2:])], -1)
+    M = R * s[:, None, :]
+    cov2d = P._ewa_cov2d(pv, M @ M.transpose(-1, -2), W, kw["focal_x"],
+                         kw["focal_y"], kw["tanfovx"], kw["tanfovy"])
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    l1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    r3 = 3.0 * torch.sqrt(torch.clamp(l1, min=0.0))
+    radius = torch.ceil(r3)
+    full = lambda x: torch.full_like(px, x)        # noqa: E731
+    out = {"p_view z": (pv[:, 2], full(0.0)),
+           "x low": (px, full(-w * 0.2)), "x high": (px, full(w + w * 0.2)),
+           "y low": (py, full(-h * 0.2)), "y high": (py, full(h + h * 0.2)),
+           "grazing x": (graze[0], full(P.GRAZING)),
+           "grazing y": (graze[1], full(P.GRAZING)),
+           "det": (det, full(0.0)), "3 sqrt(lambda1)": (r3, torch.round(r3))}
+    if cfg.surface:
+        out["view_cos"] = ((pv * nv).sum(-1), full(-0.01))
+    for name, v in (("rect x0", px - radius), ("rect y0", py - radius),
+                    ("rect x1", px + radius + tile - 1),
+                    ("rect y1", py + radius + tile - 1)):
+        q = v / tile
+        out[name] = (q, torch.round(q))
+    return out
+
+
+def ulps_from(v, thr):
+    """|v - thr| in float32 ulp at the larger magnitude of the two."""
+    import torch
+    big = torch.maximum(v.abs(), thr.abs()).float()
+    ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+    return (v.double() - thr.double()).abs() / ulp.double()
+
+
+def hold_preprocess_ints(got, f32, deciders, label):
+    """The kernel's integer outputs against the float32 plain version's:
+    each differing row's nearest deciding quantity within PREP_ULPS ulp of
+    its threshold, at most PREP_FLIP_SHARE of the rows.  Returns the
+    differing rows' count."""
+    import torch
+
+    from svgir_tpu_torch.ops import preprocess as P
+    n = got.valid.shape[0]
+    diff = torch.zeros(n, dtype=torch.bool, device=got.valid.device)
+    for f in P.INT_FIELDS:
+        diff |= (getattr(got, f) != getattr(f32, f)).reshape(n, -1).any(1)
+    rows = torch.nonzero(diff)[:, 0].tolist()
+    near = {k: ulps_from(v, t) for k, (v, t) in deciders.items()}
+    bad = []
+    for r in rows:
+        name, u = min(((k, float(x[r])) for k, x in near.items()),
+                      key=lambda kv: kv[1])
+        fields = [f for f in P.INT_FIELDS
+                  if not torch.equal(getattr(got, f)[r], getattr(f32, f)[r])]
+        log(f"[preprocess] {label}: row {r} differs in {fields}: its "
+            f"nearest deciding quantity, {name}, lies {u:.2f} ulp from its "
+            "threshold")
+        if u > PREP_ULPS:
+            bad.append(r)
+    if bad or len(rows) > PREP_FLIP_SHARE * n:
+        raise AssertionError(
+            f"preprocess {label}: {len(rows)} rows differ in an integer "
+            f"output from the float32 plain version ({bad} not within "
+            f"{PREP_ULPS} ulp of a threshold; at most "
+            f"{PREP_FLIP_SHARE * n:.1f} may differ)")
+    return len(rows)
+
+
+def preprocess_bytes(n, k, live):
+    """(forward, backward) bytes: the forward reads means, scales, quats
+    and the SH rows and writes its 13 outputs; the backward reads the 25
+    cotangent floats of every row, the inputs of the ``live`` rows and
+    writes the gradients whole."""
+    inputs = (3 + 3 + 4 + 3 * k) * 4
+    outputs = 1 + (2 + 1 + 3 + 3 + 10 + 2 + 3 + 1) * 4 + (1 + 2 + 2 + 1) * 4
+    return n * (inputs + outputs), n * 25 * 4 + live * inputs + n * inputs
+
+
+def run_preprocess(card, dev, params, alive, cam, launched):
+    """Phase 38: P1 (csrc/preprocess.cu) at the recipe's size, on phase
+    35's stage-1 step inputs (its 524,288 rows, SH degree 3) at 800x800 and
+    from the same pose at 512x512: the integer outputs held to the float32
+    plain version (``hold_preprocess_ints``), every float output and
+    gradient to the plain forward in float64 and autograd's gradients
+    through it (cotangents on the alive rows that pass the culls, as the
+    blend gives them), two runs bit-equal, the wrappers' refusals, both
+    kernels timed beside their byte bound with their registers and
+    spills; P.preprocess refuses float64 CUDA tensors; ``_dilation`` takes
+    P1 at 0.3 px^2 and the plain route, which dilates, at 0.3/16.
+    ``launched``: each kernel's launches in phase 35's stage-1 step.
+    Returns the kernels-JSON rows."""
+    import torch
+
+    from svgir_tpu_torch.cameras import look_at_camera
+    from svgir_tpu_torch.config import RasterConfig
+    from svgir_tpu_torch.kernels import build
+    from svgir_tpu_torch.kernels import preprocess as KP
+    from svgir_tpu_torch.models import gaussians as G
+    from svgir_tpu_torch.ops import preprocess as P
+
+    t_phase = time.time()
+    with torch.no_grad():
+        means = params["xyz"].detach().contiguous()
+        scales = G.get_scaling(params).contiguous()
+        quats = G.get_rotation(params).contiguous()
+        shs = G.get_shs(params).contiguous()
+    n, k = means.shape[0], shs.shape[1]
+    log_text = (build.BUILD_DIR / "build.log").read_text()
+    regs = ptxas_preprocess(log_text)
+    for (direction, args), v in sorted(regs.items()):
+        log(f"[ptxas] preprocess {direction} <{', '.join(map(str, args))}>: "
+            f"{v}")
+    cam512 = look_at_camera(eye=[0.5, 0.4, -2.6], target=[0, 0, 0],
+                            up=[0, -1, 0], fovx=math.pi / 3,
+                            fovy=math.pi / 3, width=512, height=512,
+                            device=dev)
+    report = []
+    for res, c in ((cam.width, cam), (512, cam512)):
+        kw = dict(width=c.width, height=c.height, tanfovx=c.tanfovx,
+                  tanfovy=c.tanfovy, focal_x=c.focal_x, focal_y=c.focal_y,
+                  sh_degree=3, active_sh_degree=None, scale_modifier=1.0,
+                  cfg=RasterConfig())
+        wv, fp, cp = c.world_view, c.full_proj, c.camera_center
+        kk = P._kernel_kw(kw, shs, None)
+        ins = (means, scales, quats, wv, fp, cp, shs)
+        fwd = lambda: KP.preprocess_forward(*ins, **kk)    # noqa: E731
+        label = f"{res}x{res}"
+        with torch.no_grad():
+            got, _ = counted(fwd, label, [("preprocess_forward", 1)])
+            got = P.Preprocessed(*got)
+            f32 = P.preprocess_forward_plain(means, scales, quats, wv, fp,
+                                             cp, shs=shs, **kw)
+            flips = hold_preprocess_ints(
+                got, f32, preprocess_deciders(means, scales, quats, wv, fp,
+                                              kw), label)
+            live = f32.valid & alive
+            g = torch.Generator(device=dev).manual_seed(17 + res)
+            cots = [torch.randn(getattr(f32, f).shape, generator=g,
+                                device=dev)
+                    * live.reshape((-1,) + (1,) * (getattr(f32, f).dim() - 1))
+                    for f in P.FLOAT_FIELDS]
+            bwd = lambda: KP.preprocess_backward(*ins, cots, **kk)  # noqa
+            grads = bwd()
+            again = (fwd(), bwd())
+            if not all(torch.equal(a, b) for a, b in
+                       zip(tuple(got) + grads, again[0] + again[1])):
+                raise AssertionError(f"preprocess {label}: two runs of the "
+                                     "kernels differ")
+            f32_g = P.preprocess_backward_plain(
+                *ins[:6], cots, shs=shs, **kw)[:4]
+        # the yardstick: the plain forward in float64 and autograd's
+        # gradients through it (not the hand backward the kernel shares)
+        leaves = [t.double().requires_grad_(True)
+                  for t in (means, scales, quats, shs)]
+        ref = P.preprocess_forward_plain(
+            *leaves[:3], *(t.double() for t in (wv, fp, cp)), shs=leaves[3],
+            **kw)
+        ref_g = torch.autograd.grad([getattr(ref, f) for f in P.FLOAT_FIELDS],
+                                    leaves, [x.double() for x in cots])
+        ref = P.Preprocessed(*(t.detach() for t in ref))
+        del leaves
+        errs, bad = {}, []
+        pairs = [(f, getattr(got, f), getattr(ref, f), getattr(f32, f))
+                 for f in PREP_OUTPUTS] + list(zip(PREP_GRADS, grads, ref_g,
+                                                   f32_g))
+        for name, kx, r, p in pairs:
+            if not bool(torch.isfinite(kx).all()):
+                raise AssertionError(f"preprocess {label}: non-finite {name}")
+            scale = max(float(r.abs().max()), 1e-30)
+            e_k = float((kx.double() - r).abs().max()) / scale
+            e_p = float((p.double() - r).abs().max()) / scale
+            errs[name] = e_k
+            if e_k > max(TOL_PREP_RATIO * e_p, TOL_PREP_FLOOR):
+                bad.append(name)
+            same = float((kx == p).reshape(n, -1).all(1).float().mean())
+            log(f"[preprocess] {label} {name}: kernel {e_k:.3g} of max "
+                f"{scale:.4g} from float64, the float32 "
+                f"plain version {e_p:.3g}; rows equal to the float32 plain "
+                f"version's {same:.6f}")
+        if bad:
+            raise AssertionError(f"preprocess {label}: {bad} past the "
+                                 "tolerance (TOL_PREP_RATIO, TOL_PREP_FLOOR)")
+        n_live = int(live.sum())
+        log(f"[preprocess] {label}: {n} rows, {int(f32.valid.sum())} pass "
+            f"the culls ({n_live} of them alive, with a cotangent); "
+            f"{flips} rows differ in an integer output; card: {card}")
+        fwd_b, bwd_b = (b / 3.35e9 for b in preprocess_bytes(n, k, n_live))
+        with torch.no_grad():
+            for name, kfn, pfn, bnd in (
+                    ("preprocess_forward", fwd,
+                     lambda: P.preprocess_forward_plain(
+                         means, scales, quats, wv, fp, cp, shs=shs, **kw),
+                     fwd_b),
+                    ("preprocess_backward", bwd,
+                     lambda: P.preprocess_backward_plain(
+                         *ins[:6], cots, shs=shs, **kw), bwd_b)):
+                t = timings(kfn, pfn)
+                direction = name.split("_")[1]
+                key = (direction, (1, 1, 3) if direction == "forward"
+                       else (1, 3))
+                err = max(errs[f] for f in (
+                    PREP_OUTPUTS if direction == "forward" else PREP_GRADS))
+                report.append({
+                    "name": f"{name}_recipe_size"
+                            + ("" if res == cam.width else f"_{res}"),
+                    "route": "cuda",
+                    "source": "svgir_tpu_torch/csrc/preprocess.cu",
+                    "replaces": "none (svgir_tpu_torch/ops/preprocess.py "
+                                "preprocess_forward_plain and its autograd "
+                                "backward)",
+                    "launches": launched[name], "max_abs_err": err,
+                    "oracle": "plain forward in float64, autograd's "
+                              "gradients through it", **t,
+                    "bound_ms": bnd, "bound_by": "bytes", "rows": n,
+                    "live_rows": n_live, "resolution": res,
+                    "int_rows_differing": flips, **regs.get(key, {})})
+                log(f"[preprocess] {label} {name}: " + fmt_times(t)
+                    + f", bound {bnd:.4f} ms by bytes "
+                    f"({100 * bnd / t['device_ms']:.1f}%), "
+                    f"{regs.get(key, {})}; card: {card}")
+        del got, f32, ref, cots, grads, again, ref_g, f32_g
+
+    # the wrappers refuse what the kernels do not take
+    kw = dict(width=cam.width, height=cam.height, tanfovx=cam.tanfovx,
+              tanfovy=cam.tanfovy, focal_x=cam.focal_x, focal_y=cam.focal_y,
+              sh_degree=3, active_sh_degree=None, scale_modifier=1.0,
+              cfg=RasterConfig())
+    kk = P._kernel_kw(kw, shs, None)
+    cams = (cam.world_view, cam.full_proj, cam.camera_center)
+    refusals = (
+        ("means float64", lambda: KP.preprocess_forward(
+            means.double(), scales, quats, *cams, shs, **kk)),
+        ("quats [N, 3]", lambda: KP.preprocess_forward(
+            means, scales, quats[:, :3].contiguous(), *cams, shs, **kk)),
+        ("shs of too few coefficients", lambda: KP.preprocess_forward(
+            means, scales, quats, *cams, shs[:, :9].contiguous(), **kk)),
+        ("a camera on the CPU", lambda: KP.preprocess_forward(
+            means, scales, quats, cams[0].cpu(), *cams[1:], shs, **kk)),
+        ("a gradient on world_view", lambda: P.preprocess(
+            means, scales, quats, cams[0].clone().requires_grad_(True),
+            *cams[1:], shs=shs, **kw)),
+        ("means float64 through preprocess", lambda: P.preprocess(
+            means.double(), scales, quats, *cams, shs=shs, **kw)),
+        ("every tensor float64 through preprocess", lambda: P.preprocess(
+            means.double(), scales.double(), quats.double(),
+            *(c.double() for c in cams), shs=shs.double(), **kw)),
+        ("a cotangent of the wrong shape", lambda: KP.preprocess_backward(
+            means, scales, quats, *cams, shs,
+            [torch.zeros(n, 3, device=dev)] + [None] * 7, **kk)))
+    for what, fn in refusals:
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"preprocess: the wrapper took {what}")
+    log("[preprocess] refused: " + ", ".join(w for w, _ in refusals))
+
+    # _dilation renders at 0.3 through P1 and at 0.3/16 through the plain
+    # route, which dilates: the render at 0.3/16 records other variances
+    # than the one at 0.3
+    from svgir_tpu_torch.render.stage1 import render_view_stage1
+    seen, p1 = {}, {}
+    with torch.no_grad():
+        for var in (0.3, 0.3 / 16):
+            seen[var] = []
+            with _dilation(var, seen[var]):
+                _, n_l = counted(lambda: render_view_stage1(
+                    cam512, params, torch.zeros(3, device=dev), alive=alive,
+                    cfg=RasterConfig(max_instances=1 << 22)),
+                    f"_dilation {var}", [])
+            p1[var] = n_l["preprocess_forward"]
+    if p1[0.3] < 1 or p1[0.3 / 16] != 0:
+        raise AssertionError(f"_dilation: P1's forward launched {p1} times "
+                             "(once or more at 0.3, never at 0.3/16)")
+    if not (seen[0.3] and seen[0.3 / 16]) or torch.equal(
+            seen[0.3][-1][3], seen[0.3 / 16][-1][3]):
+        raise AssertionError("_dilation: the dilated render recorded no "
+                             "variances, or the same as the undilated one")
+    log(f"[preprocess] _dilation: P1's forward launched {p1[0.3]} times at "
+        f"0.3 and {p1[0.3 / 16]} at 0.3/16; {len(seen[0.3])} calls recorded "
+        "at each "
+        "variance; the dilated x variance's median "
+        f"{float(seen[0.3][-1][3].median()):.4f} at 0.3 against "
+        f"{float(seen[0.3 / 16][-1][3].median()):.4f} at 0.3/16")
+    log(f"[preprocess] {time.time() - t_phase:.1f} s; card: {card}")
+    return report
+
+
 # Each kernel's source and the TPU kernel it replaces, for the JSON rows
 # of the recipe's size.
 SOURCES = {"binning_counts": "binning.cu", "binning_instances": "binning.cu",
@@ -5917,22 +6311,49 @@ def recipe_tables(run, card, dev, profile_dir=None):
 
 @contextlib.contextmanager
 def _dilation(var, seen=None):
-    """Preprocess with the screen-space low-pass variance ``var`` (px^2)
-    in place of the rasterizer's 0.3; ``seen`` receives each call's
-    (view depth, the footprint's own x and y variances)."""
-    from svgir_tpu_torch.ops import preprocess as P
-    orig = P._ewa_cov2d
+    """Preprocess, under no_grad, with the screen-space low-pass variance
+    ``var`` (px^2) in place of the rasterizer's 0.3.  At 0.3 the render
+    takes the port's route (P1 on the card); at any other variance the
+    plain route, since P1 holds 0.3 in its source.  ``seen`` receives each
+    call's (view depth, the footprint's own x and y variances, the dilated
+    x variance) from the plain version's EWA covariance: at 0.3 on the
+    card, from one plain forward beside P1's, which the render does not
+    read."""
+    import torch
 
-    def patched(p_view, *args):
-        out = orig(p_view, *args)
+    from svgir_tpu_torch.ops import common
+    from svgir_tpu_torch.ops import preprocess as P
+    if torch.is_grad_enabled():
+        raise RuntimeError("_dilation: renders under no_grad only")
+    orig_cov, orig_fwd = P._ewa_cov2d, vars(P._Preprocess)["forward"]
+
+    def cov(p_view, *args):
+        out = orig_cov(p_view, *args)
+        out = out + out.new_tensor([var - P.LOWPASS, 0.0, var - P.LOWPASS])
         if seen is not None:
-            seen.append((p_view[:, 2], out[:, 0] - 0.3, out[:, 2] - 0.3))
-        return out + out.new_tensor([var - 0.3, 0.0, var - 0.3])
-    P._ewa_cov2d = patched
+            seen.append((p_view[:, 2], out[:, 0] - var, out[:, 2] - var,
+                         out[:, 0]))
+        return out
+
+    def forward(ctx, means3d, scales, quats, shs, colors, world_view,
+                full_proj, campos, kw):
+        ins = (means3d, scales, quats, world_view, full_proj, campos)
+
+        def plain():
+            return tuple(P.preprocess_forward_plain(*ins, shs=shs,
+                                                    colors=colors, **kw))
+        if var != P.LOWPASS:
+            return plain()
+        out = orig_fwd.__func__(ctx, means3d, scales, quats, shs, colors,
+                                world_view, full_proj, campos, kw)
+        if seen is not None and common.on_cuda(means3d):
+            plain()
+        return out
+    P._ewa_cov2d, P._Preprocess.forward = cov, staticmethod(forward)
     try:
         yield
     finally:
-        P._ewa_cov2d = orig
+        P._ewa_cov2d, P._Preprocess.forward = orig_cov, orig_fwd
 
 
 def recipe_scale_probe(ck, scene_path, card, dev):
@@ -5944,7 +6365,8 @@ def recipe_scale_probe(ck, scene_path, card, dev):
     scale 1, at scale 1 averaged over 4x4 blocks (the scale-4 image of
     the model seen at the resolution it was fitted at), and at scale 4
     with the rasterizer's +0.3 px^2 screen-space dilation cut to
-    0.3/16 (the same filter in scene units as at scale 1).  Also the
+    0.3/16 (the same filter in scene units as at scale 1; the plain
+    route, every other render through P1).  Also the
     share of the alive surfels in front of each camera whose own
     footprint (both screen variances) is under the 0.3 px^2 dilation,
     at each scale."""
@@ -5978,7 +6400,7 @@ def recipe_scale_probe(ck, scene_path, card, dev):
         return torch.clamp(res["render"], 0, 1)
 
     def small(seen):
-        z, vx, vy = seen[-1]
+        z, vx, vy, _ = seen[-1]
         rows = alive & (z > 0.2)
         own = torch.maximum(vx, vy)[rows]
         return (float((own < 0.3).float().mean()),
@@ -5996,8 +6418,12 @@ def recipe_scale_probe(ck, scene_path, card, dev):
             psnr["scale 1"].append(M.psnr(r1, gt1))
             psnr["scale 1 pooled 4x4"].append(
                 M.psnr(F.avg_pool2d(r1[None], 4)[0], gt4))
+            seen16 = []
             psnr["scale 4, dilation 0.3/16"].append(
-                M.psnr(render(c4, var=0.3 / 16), gt4))
+                M.psnr(render(c4, var=0.3 / 16, seen=seen16), gt4))
+            if not seen16 or torch.equal(seen4[-1][3], seen16[-1][3]):
+                raise AssertionError("recipe scale probe: the render at "
+                                     "0.3/16 px^2 was not dilated so")
             share["scale 1"].append(small(seen1))
             share["scale 4"].append(small(seen4))
     mean = {k: statistics.fmean(v) for k, v in psnr.items()}
@@ -6106,7 +6532,7 @@ def main() -> int:
     build.build()
     for stem in ("binning", "blend_forward", "blend_backward", "cols",
                  "consistency", "env_lookup", "launch_floor", "march",
-                 "shading"):
+                 "preprocess", "shading"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")

@@ -17,7 +17,8 @@ KERNEL_NAMES = ("binning_counts", "binning_instances", "blend_forward",
                 "env_lookup_forward", "env_lookup_backward", "march",
                 "pad_cols", "slice_cols", "consistency_forward",
                 "consistency_backward", "shading_forward",
-                "shading_backward")
+                "shading_backward", "preprocess_forward",
+                "preprocess_backward")
 
 
 def reset_launches() -> None:

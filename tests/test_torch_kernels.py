@@ -255,7 +255,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
                                         "blend_forward", "cols",
                                         "consistency", "env_lookup",
                                         "launch_floor", "march",
-                                        "shading"]
+                                        "preprocess", "shading"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 

@@ -84,7 +84,7 @@ METRICS = {"host_syncs.s1": (1, "host"), "render_host_ms.s1": (1, "host"),
            "backward_host_ms.s1": (1, "host"),
            "optimizer_host_ms.s1": (1, "host"),
            "host_syncs.s2": (2, "host"), "consistency_ms.s2": (2, "device"),
-           "shading_ms.s2": (2, "device")}
+           "shading_ms.s2": (2, "device"), "preprocess_ms.s2": (2, "device")}
 
 
 @pytest.fixture(scope="module", autouse=True)
