@@ -367,14 +367,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  alive rows (dead rows: radiance 0, visibility 1, area
                  2 pi, direction 0, cotangent 0), env values past both
                  clamps, the roughness's ends, normals facing away.  pbr,
-                 diffuse light and the six gradients from the plain
-                 version (shade_train_*_plain) in float64, each within
-                 TOL_SHADING_RATIO times the float32 plain version's own
-                 error (or TOL_SHADING_FLOOR); dead rows' gradients
-                 exactly 0; two runs bit-equal (no atomics); the wrappers
-                 and shade_train refuse what the kernels do not take;
-                 both kernels timed beside their byte bound and the
-                 float32 plain version.  Phase 35's S = 64 step launches
+                 diffuse light and the six gradients from
+                 rendering_equation4 in float64 and autograd's gradients
+                 through it (in chunks of rows), each within
+                 TOL_SHADING_RATIO times the same in float32's own error
+                 (or TOL_SHADING_FLOOR); dead rows' gradients exactly 0;
+                 two runs bit-equal (no atomics); the wrappers and
+                 shade_train refuse what the kernels do not take; both
+                 kernels timed beside their byte bound and
+                 rendering_equation4's forward and autograd's backward in
+                 float32.  Phase 35's S = 64 step launches
                  each once.  Rows ``shading_*_recipe_size``.
   38. preprocess (run at the end of 37) the rasterizer's preprocess kernels
                  P1 (csrc/preprocess.cu) on phase 35's stage-1 inputs
@@ -386,9 +388,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  PREP_FLIP_SHARE of the rows; every float output and
                  gradient (cotangents on the alive rows that pass the
                  culls) within TOL_PREP_RATIO times the float32 plain
-                 version's distance from the plain forward in float64 and
-                 autograd's gradients through it, or TOL_PREP_FLOOR; two runs bit-equal; the wrappers'
-                 refusals; both kernels timed beside their byte bound,
+                 forward's and autograd's distance from the plain forward
+                 in float64 and autograd's gradients through it, or
+                 TOL_PREP_FLOOR; two runs bit-equal; the wrappers'
+                 refusals; both kernels timed beside their byte bound and
+                 the plain forward and autograd's backward in float32,
                  with registers and spills; P.preprocess refuses float64
                  CUDA tensors; the stage-1 render through ``_dilation``
                  launches P1 at 0.3 px^2 and not at 0.3/16, and records
@@ -449,15 +453,19 @@ import time
 # larger.
 TOL_CONSISTENCY_RATIO = 4.0
 TOL_CONSISTENCY_FLOOR = 1e-4
-# The training shading kernels against their plain version in float64, for
-# each output (pbr, diffuse light, the six gradients), element by element
-# (of the output's largest magnitude) and in the norm: the kernels round in
-# float32, contract products into fused multiply-adds and sum over S in
-# another order (each lane's samples, then a fixed shuffle tree), with no
-# atomics.  Each error is held to TOL_SHADING_RATIO times the float32
-# plain version's on the same inputs, or TOL_SHADING_FLOOR (a few float32
-# ulp) where that is larger.
-TOL_SHADING_RATIO = 2.0
+# The training shading kernels against rendering_equation4 in float64 and
+# autograd's gradients through it, for each output (pbr, diffuse light, the
+# six gradients), element by element (of the output's largest magnitude)
+# and in the norm: the kernels round in float32, contract products into
+# fused multiply-adds and sum over S in another order (each lane's
+# samples, then a fixed shuffle tree), with no atomics.  Each error is held
+# to TOL_SHADING_RATIO times the same evaluation's in float32 on the same
+# inputs, or TOL_SHADING_FLOOR (a few float32 ulp) where that is larger.
+# On the card that float32 evaluation lies up to 1.03x as far from
+# float64 as the kernels' hand-derived float32 mirror did, the yardstick
+# until its removal, which was held at 2x: at 1.9 no bar is looser than it
+# was.
+TOL_SHADING_RATIO = 1.9
 TOL_SHADING_FLOOR = 1e-6
 
 # B3/B4 tolerances (kernel vs plain, same inputs, same device).  The kernel
@@ -5496,13 +5504,31 @@ def shading_bounds(ins, d_pbr, d_dl):
     return fwd / 3.35e9, bwd / 3.35e9, live
 
 
-def shading_plain(ins, d_pbr, d_dl, dtype):
-    """The plain version in ``dtype``: (pbr, diffuse light, d_base_color,
-    d_roughness, d_normals, d_viewdirs, d_radiance, d_env_radiance)."""
+SHADING_CHUNK_ROWS = 16_384  # rows of shading_autograd's chunks: 2^20
+                             # (row, sample) pairs at S = 64
+
+
+def shading_autograd(ins, d_pbr, d_dl, dtype, rows=SHADING_CHUNK_ROWS):
+    """rendering_equation4's pbr and diffuse light in ``dtype`` and
+    autograd's gradients through it, over chunks of ``rows`` rows (whole, at
+    the recipe's size its [N, S, 4, .] temporaries would fill the card in
+    float64): (pbr, diffuse light, d_base_color, d_roughness, d_normals,
+    d_viewdirs, d_radiance, d_env_radiance)."""
+    import torch
+
     from svgir_tpu_torch.ops import shading as SH
-    x = [t.to(dtype) for t in ins]
-    return SH.shade_train_forward_plain(*x) + SH.shade_train_backward_plain(
-        *x, d_pbr.to(dtype), d_dl.to(dtype))
+    outs = []
+    for r0 in range(0, ins[0].shape[0], rows):
+        x = [t[r0:r0 + rows].detach().to(dtype).requires_grad_(i < 6)
+             for i, t in enumerate(ins)]
+        pbr, extra = SH.rendering_equation4(*x[:5], None, *x[6:],
+                                            env_radiance=x[5])
+        dl = extra["diffuse_light"]
+        grads = torch.autograd.grad(
+            (pbr, dl), x[:6], (d_pbr[r0:r0 + rows].to(dtype),
+                               d_dl[r0:r0 + rows].to(dtype)))
+        outs.append((pbr.detach(), dl.detach()) + grads)
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 SHADING_OUTPUTS = ("pbr", "diffuse_light", "d_base_color", "d_roughness",
@@ -5510,10 +5536,12 @@ SHADING_OUTPUTS = ("pbr", "diffuse_light", "d_base_color", "d_roughness",
 
 
 def run_shading(card, dev, alive, launched):
-    """Phase 37: stage 2's training shading kernels against their plain
-    version in float64 at the recipe's size; their determinism and dead
-    rows; the wrappers' and shade_train's refusals; both timed beside
-    their byte bound and the float32 plain version.  ``launched``: each
+    """Phase 37: stage 2's training shading kernels against
+    rendering_equation4 in float64 and autograd's gradients through it at
+    the recipe's size; their determinism and dead rows; the wrappers' and
+    shade_train's refusals; both timed beside their byte bound and
+    rendering_equation4's forward and autograd's backward in float32.
+    ``launched``: each
     kernel's launches in phase 35's S = 64 step.  Returns the kernels-JSON
     rows."""
     import torch
@@ -5543,8 +5571,8 @@ def run_shading(card, dev, alive, launched):
         if bool((gr[dead] != 0).any()):
             raise AssertionError(f"shading: {name} is not 0 on a dead row")
     del again
-    ref = shading_plain(ins, d_pbr, d_dl, torch.float64)
-    f32 = shading_plain(ins, d_pbr, d_dl, torch.float32)
+    ref = shading_autograd(ins, d_pbr, d_dl, torch.float64)
+    f32 = shading_autograd(ins, d_pbr, d_dl, torch.float32)
 
     def norm_err(a, b):
         return float((a.double() - b).norm() / b.norm().clamp(min=1e-30))
@@ -5563,8 +5591,8 @@ def run_shading(card, dev, alive, launched):
             bad.append(name)
         log(f"[shading] {name}: kernel {errs[name]:.3g} of max "
             f"{float(r.abs().max()):.4g}, {e_norm:.3g} in the norm, from "
-            "the float64 plain version; the float32 plain version "
-            f"{p_max:.3g} and {p_norm:.3g}")
+            "rendering_equation4 and autograd in float64; the same in "
+            f"float32 {p_max:.3g} and {p_norm:.3g}")
     if bad:
         raise AssertionError(f"shading: {bad} past the tolerance "
                              "(TOL_SHADING_RATIO, TOL_SHADING_FLOOR)")
@@ -5594,16 +5622,22 @@ def run_shading(card, dev, alive, launched):
         raise AssertionError(f"shading: the wrapper took {what}")
     log("[shading] refused: " + ", ".join(w for w, _ in refusals))
 
-    # times: the kernels, and the float32 plain version
+    # times: the kernels, and rendering_equation4's forward and autograd's
+    # backward in float32 (the graph built once, whole)
+    leaves = [t.detach().requires_grad_(i < 6) for i, t in enumerate(ins)]
+    pbr, extra = SH.rendering_equation4(*leaves[:5], None, *leaves[6:],
+                                        env_radiance=leaves[5])
     report = []
     with torch.no_grad():
         for name, kfn, pfn, bnd in (
                 ("shading_forward", lambda: KS.shading_forward(*ins),
-                 lambda: SH.shade_train_forward_plain(*ins), fwd_b),
+                 lambda: SH.rendering_equation4(*ins[:5], None, *ins[6:],
+                                                env_radiance=ins[5]), fwd_b),
                 ("shading_backward",
                  lambda: KS.shading_backward(*ins, d_pbr, d_dl),
-                 lambda: SH.shade_train_backward_plain(*ins, d_pbr, d_dl),
-                 bwd_b)):
+                 lambda: torch.autograd.grad(
+                     (pbr, extra["diffuse_light"]), leaves[:6],
+                     (d_pbr, d_dl), retain_graph=True), bwd_b)):
             t = timings(kfn, pfn)
             err = errs["pbr"] if name.endswith("forward") else max(
                 errs[k] for k in SHADING_OUTPUTS[2:])
@@ -5613,12 +5647,14 @@ def run_shading(card, dev, alive, launched):
                 "replaces": "none (svgir_tpu_torch/ops/shading.py "
                             "rendering_equation4 and its autograd backward)",
                 "launches": launched[name], "max_abs_err": err, "oracle":
-                "plain version in float64", **t, "bound_ms": bnd,
+                "rendering_equation4 in float64, autograd's gradients "
+                "through it", **t, "bound_ms": bnd,
                 "bound_by": "bytes", "rows": n, "samples": s,
                 "live_rows": live})
             log(f"[shading] {name}: " + fmt_times(t) + f", bound "
                 f"{bnd:.4f} ms by bytes ({100 * bnd / t['device_ms']:.1f}%"
                 f"); card: {card}")
+    del pbr, extra, leaves
     log(f"[shading] {time.time() - t_phase:.1f} s; card: {card}")
     return report
 
@@ -5630,11 +5666,15 @@ def run_shading(card, dev, alive, launched):
 # as the plain version does on the card, but PyTorch's reductions and
 # cuBLAS's products may order a sum otherwise); every float output and
 # gradient from the plain forward in float64 and autograd's gradients
-# through it within TOL_PREP_RATIO times the float32 plain version's
-# distance, or TOL_PREP_FLOOR of its largest magnitude.
+# through it within TOL_PREP_RATIO times the distance of the same in
+# float32, or TOL_PREP_FLOOR of its largest magnitude.  On the card
+# autograd's float32 gradients lie up to 1.13x as far from float64 as
+# P1's hand-derived float32 mirror did (d_scales, at the recipe's size;
+# 1.27x on the card tests' rows), the yardstick until its removal, which
+# was held at 2x: at 1.5 no bar is looser than it was.
 PREP_ULPS = 2
 PREP_FLIP_SHARE = 1e-5
-TOL_PREP_RATIO = 2.0
+TOL_PREP_RATIO = 1.5
 TOL_PREP_FLOOR = 1e-6
 PREP_OUTPUTS = ("mean2d", "depth", "conic", "normal_view", "jinv", "lam",
                 "rgb", "view_cos")
@@ -5850,10 +5890,15 @@ def run_preprocess(card, dev, params, alive, cam, launched):
                        zip(tuple(got) + grads, again[0] + again[1])):
                 raise AssertionError(f"preprocess {label}: two runs of the "
                                      "kernels differ")
-            f32_g = P.preprocess_backward_plain(
-                *ins[:6], cots, shs=shs, **kw)[:4]
-        # the yardstick: the plain forward in float64 and autograd's
-        # gradients through it (not the hand backward the kernel shares)
+        # the yardstick: the plain forward and autograd's gradients through
+        # it, in float64 and in float32 (its graph kept for the timings)
+        leaves32 = [t.detach().requires_grad_(True)
+                    for t in (means, scales, quats, shs)]
+        out32 = P.preprocess_forward_plain(*leaves32[:3], wv, fp, cp,
+                                           shs=leaves32[3], **kw)
+        outs32 = [getattr(out32, f) for f in P.FLOAT_FIELDS]
+        f32_g = torch.autograd.grad(outs32, leaves32, cots,
+                                    retain_graph=True)
         leaves = [t.double().requires_grad_(True)
                   for t in (means, scales, quats, shs)]
         ref = P.preprocess_forward_plain(
@@ -5878,9 +5923,9 @@ def run_preprocess(card, dev, params, alive, cam, launched):
                 bad.append(name)
             same = float((kx == p).reshape(n, -1).all(1).float().mean())
             log(f"[preprocess] {label} {name}: kernel {e_k:.3g} of max "
-                f"{scale:.4g} from float64, the float32 "
-                f"plain version {e_p:.3g}; rows equal to the float32 plain "
-                f"version's {same:.6f}")
+                f"{scale:.4g} from float64, the float32 plain forward (and "
+                f"autograd) {e_p:.3g}; rows equal to the float32 plain "
+                f"forward's (and autograd's) {same:.6f}")
         if bad:
             raise AssertionError(f"preprocess {label}: {bad} past the "
                                  "tolerance (TOL_PREP_RATIO, TOL_PREP_FLOOR)")
@@ -5896,8 +5941,8 @@ def run_preprocess(card, dev, params, alive, cam, launched):
                          means, scales, quats, wv, fp, cp, shs=shs, **kw),
                      fwd_b),
                     ("preprocess_backward", bwd,
-                     lambda: P.preprocess_backward_plain(
-                         *ins[:6], cots, shs=shs, **kw), bwd_b)):
+                     lambda: torch.autograd.grad(outs32, leaves32, cots,
+                                                 retain_graph=True), bwd_b)):
                 t = timings(kfn, pfn)
                 direction = name.split("_")[1]
                 key = (direction, (1, 1, 3) if direction == "forward"
@@ -5922,7 +5967,8 @@ def run_preprocess(card, dev, params, alive, cam, launched):
                     + f", bound {bnd:.4f} ms by bytes "
                     f"({100 * bnd / t['device_ms']:.1f}%), "
                     f"{regs.get(key, {})}; card: {card}")
-        del got, f32, ref, cots, grads, again, ref_g, f32_g
+        del got, f32, ref, cots, grads, again, ref_g, f32_g, out32, outs32
+        del leaves32
 
     # the wrappers refuse what the kernels do not take
     kw = dict(width=cam.width, height=cam.height, tanfovx=cam.tanfovx,

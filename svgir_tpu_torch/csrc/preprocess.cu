@@ -10,9 +10,9 @@
 // 21.6 device ms of a stage-2 step on an H100, and their dispatch a large
 // share of the host's.  The TPU package leaves the preprocess to XLA,
 // which fuses it (svgir_tpu/ops/preprocess.py): no TPU kernel is ported
-// here.  The plain version (ops/preprocess.py preprocess_forward_plain /
-// preprocess_backward_plain) runs on CPU tensors and is what chip_smoke.py
-// holds this pair to.
+// here.  The plain version (ops/preprocess.py preprocess_forward_plain,
+// autograd taking its gradient) runs on CPU tensors and is what
+// chip_smoke.py holds this pair to.
 //
 // Inputs: means [N, 3], scales [N, 3], quats [N, 4] (w first), the colour
 // source (shs [N, K, 3] with K >= (degree + 1)^2, or colors [N, 3], or
@@ -376,8 +376,8 @@ __device__ __forceinline__ void sh_basis(T x, T y, T z, T* b) {
   }
 }
 
-// The gradient at (x, y, z) of sum_k g_k b_k (ops/preprocess.py
-// _sh_basis_backward), in float64.
+// The gradient at (x, y, z) of sum_k g_k b_k (the derivative of
+// utils/sh.py eval_sh_basis), in float64.
 template <int kDeg>
 __device__ __forceinline__ void sh_basis_back(double x, double y, double z, const double* g,
                                               double d[3]) {

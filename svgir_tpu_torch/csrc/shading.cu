@@ -11,10 +11,10 @@
 // GB); with their backward they took 57% of the stage-2 step on an H100.
 // It replaces no TPU kernel: the JAX package leaves the shading to XLA,
 // which fuses it (svgir_tpu/ops/shading.py).  rendering_equation4 stays
-// for evaluation and relighting, which read its other terms; the plain
-// version of this pair (ops/shading.py shade_train_forward_plain /
-// shade_train_backward_plain) transcribes this file's arithmetic for CPU
-// tensors and for chip_smoke.py's checks.
+// for evaluation and relighting, which read its other terms, and is this
+// pair's plain version: CPU tensors take it under autograd
+// (ops/shading.py shade_train), and chip_smoke.py holds this pair to it
+// and autograd's gradients.
 //
 // Inputs: base_color [N, 12] channel-major (c * 4 + v), roughness [N, 4],
 // the shading normals [N, 4, 3], viewdirs [N, 3] (points -> camera),
@@ -69,10 +69,10 @@
 // Summation order and tolerance: each lane sums its samples in order, then
 // the halving tree sums the lanes; PyTorch sums over S in another order.
 // GGX's denominator near a specular peak amplifies float32 rounding, so
-// chip_smoke.py (phase 37) holds each output to the plain version
-// evaluated in float64, within twice the float32 plain version's own
-// error on the same inputs (TOL_SHADING_RATIO), or 1e-6 of the output's
-// largest magnitude where that is larger (TOL_SHADING_FLOOR).
+// chip_smoke.py (phase 37) holds each output to rendering_equation4 and
+// autograd's gradients evaluated in float64, within TOL_SHADING_RATIO
+// times the same in float32's own error on the same inputs, or 1e-6 of
+// the output's largest magnitude where that is larger (TOL_SHADING_FLOOR).
 #include <climits>
 #include <cstdint>
 

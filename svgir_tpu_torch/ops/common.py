@@ -30,11 +30,9 @@ NG = 12                               # geometry rows of a blend slab row
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
     plain version runs); any other device is refused."""
-    if t.is_cuda:
-        return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
-    return False
+    return t.device.type == "cuda"
 
 
 def finalize_depth(D: torch.Tensor, T: torch.Tensor,

@@ -1,6 +1,14 @@
 """svgir_tpu_torch.ops.preprocess against svgir_tpu.ops.preprocess: every
 ``Preprocessed`` field and the vector-Jacobian product.
 
+``test_preprocess_matches_jax_in_float64`` runs both in float64 on
+``tests/torch_kernel_inputs``' preprocess rows (every branch the kernel
+pair P1 templates, random rows and rows built to meet the edges): integer
+fields equal, float fields and gradients within 1e-12 of each one's
+largest magnitude, the SH gradient on the row whose rgb sits exactly on
+the clamp at 0 twice JAX's (ROADMAP hazard 14).  The tests below it run
+float32 inputs.
+
 Inputs are seeded numpy arrays fed to both packages on the CPU.  Integer
 fields (valid, radius, rects, tiles_touched) must be equal.  Float fields
 are held to 1e-5 relative (float32 math in a different association order
@@ -26,7 +34,13 @@ from svgir_tpu.ops.preprocess import preprocess as j_preprocess
 
 from svgir_tpu_torch.cameras import look_at_camera as t_look_at
 from svgir_tpu_torch.config import RasterConfig as TCfg
+from svgir_tpu_torch.ops.preprocess import Preprocessed
 from svgir_tpu_torch.ops.preprocess import preprocess as t_preprocess
+from svgir_tpu_torch.utils import sh as sh_utils
+
+from tests.torch_kernel_inputs import (PREP_CASE_IDS, PREP_CASES,
+                                       PREP_EDGE_ROWS, prep_camera,
+                                       prep_cotangents, prep_kw, prep_rows)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -147,3 +161,106 @@ def test_preprocess_vjp_matches():
         scale = max(np.abs(b).max(), 1e-6)
         np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=1e-4,
                                    err_msg=name)
+
+
+def _edges_met(out, cam, means, shs):
+    """Each edge row of ``prep_rows(edges=True)`` meets its edge (float64
+    outputs under the axis camera)."""
+    out = Preprocessed(*(t.detach() for t in out))
+    r = {name: k for k, name in enumerate(PREP_EDGE_ROWS)}
+    pv = means + torch.tensor([0.0, 0.0, 3.0], dtype=torch.float64)
+    px, py = out.mean2d[:, 0], out.mean2d[:, 1]
+    lim = 1.3 * cam.tanfovx
+    d0 = torch.stack([pv[:, 0] / pv[:, 2] + 1e-3, pv[:, 1] / pv[:, 2],
+                      torch.ones_like(pv[:, 0])], -1)
+    mod0 = d0.norm(dim=-1)
+    graze = ((d0 / mod0[:, None]) * out.normal_view).sum(-1) / mod0
+    dirs = means - cam.camera_center.to(torch.float64)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    v = sh_utils.eval_sh(0, shs.transpose(-1, -2)[..., :1], dirs) + 0.5
+    return {
+        "behind": bool(out.depth[r["behind"]] < 0),
+        "outside": bool(px[r["outside"]] >= 1.2 * cam.width),
+        "view_cos": abs(float(out.view_cos[r["view_cos"]]) + 0.01) < 1e-12,
+        "grazing": abs(abs(float(graze[r["grazing"]])) - 0.01) < 1e-12,
+        "tz0": float(out.depth[r["tz0"]]) == 0.0,
+        "tx_past": float(pv[r["tx_past"], 0] / pv[r["tx_past"], 2]) > lim,
+        "ty_past": float(-pv[r["ty_past"], 1] / pv[r["ty_past"], 2]) > lim,
+        "rgb_at_0": float(v[r["rgb_clamp"], 0]) == 0.0
+        and float(v[r["rgb_clamp"], 1]) < 0,
+        "a_valid_row": bool(out.valid[r["plain"]]),
+        "in_frame": bool(py[r["plain"]] > 0),
+    }
+
+
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+@pytest.mark.parametrize("case", PREP_CASES, ids=PREP_CASE_IDS)
+def test_preprocess_matches_jax_in_float64(case, edges):
+    _, cfg_kw, kind, degree, _, _, none = case
+    cam = prep_camera(edges)
+    rows = prep_rows(edges, degree)
+    kw = prep_kw(cam, case)
+    # the leaves: means, scales, quats and the colour source, if any
+    n_src = {"sh": 1, "colors": 1, "none": 0}[kind]
+    src = rows[3] if kind == "sh" else rows[4]
+    leaves = [t.clone().requires_grad_(True) for t in rows[:3]
+              + (src,) * n_src]
+
+    def source(ts):
+        return {"shs": ts[3]} if kind == "sh" else \
+            {"colors": ts[3]} if kind == "colors" else {}
+
+    cams = [t.double() for t in (cam.world_view, cam.full_proj,
+                                 cam.camera_center)]
+    out = t_preprocess(*leaves[:3], *cams, **source(leaves), **kw)
+    if edges and kind == "sh":
+        met = _edges_met(out, cam, rows[0], rows[3])
+        assert all(met.values()), [k for k, v in met.items() if not v]
+    cots, _ = prep_cotangents(out, edges, none=none)
+    loss = sum((getattr(out, f) * c).sum()
+               for f, c in zip(FLOAT_FIELDS, cots) if c is not None)
+    grads = torch.autograd.grad(loss, leaves)
+
+    with jax.enable_x64(True):
+        jcams = [jnp.asarray(t.numpy()) for t in cams]
+        jcot = {f: jnp.asarray(c.numpy())
+                for f, c in zip(FLOAT_FIELDS, cots) if c is not None}
+        jkw = dict(kw, cfg=JCfg(**cfg_kw))
+
+        def jfn(*a):
+            return j_preprocess(*a[:3], *jcams, **source(a), **jkw)
+
+        def jloss(*a):
+            p = jfn(*a)
+            return sum(jnp.sum(getattr(p, f) * c) for f, c in jcot.items())
+
+        jargs = [jnp.asarray(t.detach().numpy()) for t in leaves]
+        jout = jfn(*jargs)
+        jgrads = jax.grad(jloss, argnums=tuple(range(len(jargs))))(*jargs)
+        jout = {f: np.asarray(getattr(jout, f)) for f in Preprocessed._fields}
+        jgrads = [np.asarray(g) for g in jgrads]
+
+    for f in INT_FIELDS:
+        np.testing.assert_array_equal(getattr(out, f).numpy(), jout[f],
+                                      err_msg=f)
+    for f in FLOAT_FIELDS:
+        a, b = getattr(out, f).detach().numpy(), jout[f]
+        assert b.dtype == np.float64, f
+        err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+        assert err < 1e-12, (f, err)
+    names = ("d_means3d", "d_scales", "d_quats", "d_" + kind)
+    for name, a, b in zip(names, grads, jgrads):
+        a = a.numpy()
+        if edges and kind == "sh":
+            # rgb's red on the clamp at 0: torch.clamp passes the whole
+            # gradient, jnp.maximum half of it
+            r = PREP_EDGE_ROWS.index("rgb_clamp")
+            if name == "d_sh":
+                np.testing.assert_array_equal(a[r, :, 0] == 0,
+                                              b[r, :, 0] == 0)
+                b = b.copy()
+                b[r, :, 0] *= 2
+        scale = np.abs(b).max()
+        assert scale > 0 or name == "d_sh" and case[4] == -1.0, name
+        err = np.abs(a - b).max() / max(scale, 1e-300)
+        assert err < 1e-12, (name, err)

@@ -1,27 +1,23 @@
 """Stage 2's training shading (``svgir_tpu_torch.ops.shading.shade_train``,
 the kernel pair of ``csrc/shading.cu`` on the card) on the CPU.
 
-* Its plain version (``shade_train_forward_plain`` /
-  ``shade_train_backward_plain``, the kernels' arithmetic and hand-derived
-  backward) against autograd through ``rendering_equation4``, in float64,
-  on seeded random rows (N = 64, S = 8) and on rows built to meet the
-  edges: all-zero cotangents, roughness 0.09 and 0.99, vertices with
-  N.V < 0, env values above 64 and below 0, and samples exactly on the
-  clamps' bounds (env 0 and 64, N.L of the transport 0, GGX's N.L, N.V,
-  N.H at 1e-6 and 1, V.H at 1, the denominator at 4 pi).  Both compute
-  the same float64 expressions, so they agree to a few ulp.
+* ``shade_train`` on CPU tensors: ``rendering_equation4``'s pbr and
+  diffuse light and autograd's gradients through it, bit for bit, and no
+  kernel launch (``tests/test_torch_svgss.py`` holds that route to
+  ``svgir_tpu`` in float64); a tensor on any other device is refused.
 * ``render_svgss(is_training=True)`` through ``shade_train`` against the
   same step through ``rendering_equation4``: the loss within 1e-6
-  relative and every gradient within 2e-5 of its largest magnitude, float32
-  rounding (the two sum over S and over the vertices in other orders; on
-  this scene they lie 2.2e-6 apart at most, the loss equal).
+  relative and every gradient within 2e-5 of its largest magnitude.
 * ``shade_train`` refuses a gradient on the bake's visibility, directions
   or areas; the kernel wrappers refuse CPU tensors.
-* On a CUDA device (marked ``card``, skipped here): the kernels against the
-  plain version in float64 on the same rows, no further than twice the
-  float32 plain version (or 1e-6 of each output's largest magnitude).  On
-  the card, without JAX: ``python -m pytest --noconftest -o addopts= -p
-  no:cacheprovider tests/test_torch_shading_kernel.py -m card``.
+* On a CUDA device (marked ``card``, skipped here): the kernels against
+  ``rendering_equation4`` in float64 and autograd's gradients through it,
+  on the rows of ``tests/torch_kernel_inputs.shade_rows`` (random, and
+  built to meet the clamps' bounds), no further than 1.9 times the same
+  evaluation's in float32 on the card (or 1e-6 of each output's largest
+  magnitude).  On the card, without JAX: ``python -m pytest --noconftest
+  -o addopts= -p no:cacheprovider tests/test_torch_shading_kernel.py -m
+  card``.
 
 Imports no JAX: its card test runs on a machine without it.
 """
@@ -43,10 +39,12 @@ from svgir_tpu_torch.render import svgss
 from svgir_tpu_torch.utils.graphics import fibonacci_sphere_sampling
 from svgir_tpu_torch.utils.transforms import normalize
 
-N, S = 64, 8
-NAMES = ("base_color", "roughness", "normals", "viewdirs", "radiance",
-         "env_radiance")
-BAKE = ("visibility", "incident_dirs", "incident_areas")
+# by its own name, not as ``tests.torch_kernel_inputs``: another ``tests``
+# package installed on the card's machine takes that name
+from torch_kernel_inputs import SHADE_INPUTS, SHADE_S, shade_rows
+
+S = SHADE_S
+NAMES, BAKE = SHADE_INPUTS[:6], SHADE_INPUTS[6:]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,76 +66,8 @@ def card():
     return torch.device("cuda:0")
 
 
-def _unit(g, *shape):
-    return normalize(torch.randn(*shape, 3, generator=g, dtype=torch.float64))
-
-
-def _inputs(edges: bool, seed: int = 0):
-    """(the nine inputs of shade_train by name, d_pbr, d_diffuse_light) in
-    float64.  Random rows: base colour and roughness in get_base_color's
-    and get_roughness's ranges, unit normals (half of them facing away
-    from the view), env values in [-4, 80], visibility 0 or 1.  With
-    ``edges``, rows 0-7 are built to meet the edges listed in the module
-    docstring."""
-    g = torch.Generator().manual_seed(seed)
-
-    def rand(*shape):
-        return torch.rand(*shape, generator=g, dtype=torch.float64)
-
-    x = {"base_color": rand(N, 12) * 0.77 + 0.03,
-         "roughness": rand(N, 4) * 0.9 + 0.09,
-         "normals": _unit(g, N, 4), "viewdirs": _unit(g, N),
-         "radiance": rand(N, S, 3) * 2, "env_radiance": rand(N, S, 3) * 84 - 4,
-         "visibility": (rand(N, S, 1) > 0.3).double(),
-         "incident_dirs": _unit(g, N, S),
-         "incident_areas": torch.full((N, S, 1), 4 * math.pi / S,
-                                      dtype=torch.float64)}
-    d_pbr = torch.randn(N, 12, generator=g, dtype=torch.float64)
-    d_dl = torch.randn(N, 12, generator=g, dtype=torch.float64)
-    if not edges:
-        return x, d_pbr, d_dl
-
-    def vec(*v):
-        return torch.tensor(v, dtype=torch.float64)
-
-    z, e = (0.0, 0.0, 1.0), 1e-6
-    # |(e, 0, side)|^2 rounds to 1 + 2^-52, whose square root rounds to 1:
-    # normalize leaves the vector as it is, its x exactly 1e-6
-    side = math.nextafter(math.sqrt(1 - e * e), 2.0)
-    # rows 0-1: no cotangent (dead rows)
-    d_pbr[:2] = 0
-    d_dl[:2] = 0
-    # row 2: the roughness's ends; row 3: every vertex facing away
-    x["roughness"][2] = vec(0.09, 0.99, 0.09, 0.99)
-    x["normals"][3] = -x["viewdirs"][3].expand(4, 3) + 0.1 * _unit(g, 4)
-    # row 4: env values on the clamp's bounds and past them
-    x["env_radiance"][4, :4] = vec(
-        (0.0, 64.0, 80.0), (64.0, 0.0, -1.0), (100.0, 64.0, 0.0),
-        (0.0, 0.0, 64.0))
-    # row 5: V = N = L at sample 0 and roughness 1: GGX's N.L, N.V, N.H,
-    # V.H at 1 and the denominator at 4 pi; sample 1 perpendicular to the
-    # normals, the transport's N.L at 0
-    x["viewdirs"][5] = vec(*z)
-    x["normals"][5] = vec(*z)
-    x["roughness"][5] = 1.0
-    x["incident_dirs"][5, 0] = vec(*z)
-    x["incident_dirs"][5, 1] = vec(1.0, 0.0, 0.0)
-    # row 6: V = L along x, unit normals with x = 1e-6: GGX's N.L, N.V
-    # and N.H at 1e-6
-    x["viewdirs"][6] = vec(1.0, 0.0, 0.0)
-    x["normals"][6] = vec(e, 0.0, side)
-    x["incident_dirs"][6, 0] = vec(1.0, 0.0, 0.0)
-    # row 7: roughness 0.09 at a specular peak, the denominator far below
-    # its lower bound; other samples around it
-    x["viewdirs"][7] = vec(*z)
-    x["normals"][7] = vec(*z)
-    x["roughness"][7] = 0.09
-    x["incident_dirs"][7, 0] = vec(*z)
-    return x, d_pbr, d_dl
-
-
 def _args(x):
-    return [x[k] for k in NAMES + BAKE]
+    return [x[k] for k in SHADE_INPUTS]
 
 
 def _autograd(x, d_pbr, d_dl):
@@ -155,89 +85,36 @@ def _autograd(x, d_pbr, d_dl):
     return pbr.detach(), dl.detach(), grads
 
 
-def _edges_met(x):
-    """Which clamp bounds the inputs meet exactly, by the plain version's
-    own terms."""
-    q = SH._row_terms(x["roughness"], x["normals"], x["viewdirs"])
-    t = SH._tap_terms(q, x["normals"], x["incident_dirs"])
-    env = x["env_radiance"]
-    return {
-        "env 0": bool((env == 0).any()), "env 64": bool((env == 64).any()),
-        "env above 64": bool((env > 64).any()),
-        "transport N.L 0": bool((t["ndi_raw"] == 0).any()),
-        "N.L 1e-6": bool((t["nol_raw"] == 1e-6).any()),
-        "N.L 1": bool((t["nol_raw"] == 1).any()),
-        "N.V 1e-6": bool((q["nov_raw"] == 1e-6).any()),
-        "N.V 1": bool((q["nov_raw"] == 1).any()),
-        "N.H 1e-6": bool((t["noh_raw"] == 1e-6).any()),
-        "N.H 1": bool((t["noh_raw"] == 1).any()),
-        "V.H 1": bool((t["voh_raw"] == 1).any()),
-        "denominator 4 pi": bool((t["p"] == SH._FOUR_PI).any()),
-        "denominator below 1e-6": bool((t["p"] < 1e-6).any()),
-        "N.V < 0 before the flip": bool((q["sg"] < 0).any()),
-    }
-
-
-@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
-def test_plain_version_matches_autograd_in_float64(edges):
-    x, d_pbr, d_dl = _inputs(edges)
-    if edges:
-        met = _edges_met(x)
-        assert all(met.values()), [k for k, v in met.items() if not v]
-    pbr, dl, grads = _autograd(x, d_pbr, d_dl)
-    ppbr, pdl = SH.shade_train_forward_plain(*_args(x))
-    pgrads = SH.shade_train_backward_plain(*_args(x), d_pbr, d_dl)
-    for name, a, b in zip(("pbr", "diffuse_light") + NAMES,
-                          (ppbr, pdl) + pgrads, (pbr, dl) + grads):
-        assert a.shape == b.shape and a.dtype == torch.float64, name
-        scale = float(b.abs().max())
-        assert scale > 0, name
-        err = float((a - b).abs().max()) / scale
-        assert err < 1e-13, (name, err)
-    # the rows with no cotangent get exact zeros
-    zero_rows = (d_pbr == 0).all(1) & (d_dl == 0).all(1)
-    assert int(zero_rows.sum()) == (2 if edges else 0)
-    for gr in pgrads:
-        assert bool((gr[zero_rows] == 0).all())
-
-
-def test_plain_version_runs_in_chunks(monkeypatch):
-    """Chunks of rows give each row's values (PyTorch's sums over S may
-    take another order at another shape: a few ulp)."""
-    x, d_pbr, d_dl = _inputs(True, seed=1)
-    whole = (SH.shade_train_forward_plain(*_args(x)),
-             SH.shade_train_backward_plain(*_args(x), d_pbr, d_dl))
-    monkeypatch.setattr(SH, "SHADE_CHUNK_PAIRS", 5 * S)
-    assert len(SH._chunks(N, S)) == 13
-    chunked = (SH.shade_train_forward_plain(*_args(x)),
-               SH.shade_train_backward_plain(*_args(x), d_pbr, d_dl))
-    for a, b in zip(whole[0] + whole[1], chunked[0] + chunked[1]):
-        torch.testing.assert_close(a, b, rtol=0,
-                                   atol=1e-14 * float(b.abs().max()))
-
-
 def test_function_takes_the_plain_version_on_the_cpu():
-    """shade_train on CPU tensors: the plain version's values and
-    gradients, and no kernel launch."""
-    x, d_pbr, d_dl = _inputs(True)
+    """shade_train on CPU tensors: rendering_equation4's values and
+    autograd's gradients through it, bit for bit, and no kernel launch."""
+    x, d_pbr, d_dl = shade_rows(True)
     x = {k: v.float() for k, v in x.items()}
+    d_pbr, d_dl = d_pbr.float(), d_dl.float()
     leaves = {k: v.clone().requires_grad_(k in NAMES) for k, v in x.items()}
     kernels.reset_launches()
     pbr, dl = SH.shade_train(*_args(leaves))
-    grads = torch.autograd.grad((pbr * d_pbr.float()).sum()
-                                + (dl * d_dl.float()).sum(),
+    grads = torch.autograd.grad((pbr * d_pbr).sum() + (dl * d_dl).sum(),
                                 [leaves[k] for k in NAMES])
     assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
-    ppbr, pdl = SH.shade_train_forward_plain(*_args(x))
-    pgrads = SH.shade_train_backward_plain(*_args(x), d_pbr.float(),
-                                           d_dl.float())
-    for a, b in zip((pbr, dl) + grads, (ppbr, pdl) + pgrads):
-        assert torch.equal(a.detach(), b)
+    want = _autograd(x, d_pbr, d_dl)
+    for a, b in zip((pbr.detach(), dl.detach()) + grads,
+                    (want[0], want[1]) + want[2]):
+        assert torch.equal(a, b)
+
+
+def test_shade_train_refuses_a_device_that_is_neither_cpu_nor_cuda():
+    x, _, _ = shade_rows(False)
+    meta = [v.float().to("meta") for v in _args(x)]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="meta"):
+        SH.shade_train(*meta)
+    assert kernels.launches() == {k: 0 for k in kernels.KERNEL_NAMES}
 
 
 @pytest.mark.parametrize("name", BAKE)
 def test_function_refuses_a_gradient_on_the_bake(name):
-    x, _, _ = _inputs(False)
+    x, _, _ = shade_rows(False)
     x = {k: v.float() for k, v in x.items()}
     x[name] = x[name].clone().requires_grad_(True)
     with pytest.raises(ValueError, match=name):
@@ -245,7 +122,7 @@ def test_function_refuses_a_gradient_on_the_bake(name):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    x, d_pbr, d_dl = _inputs(False)
+    x, d_pbr, d_dl = shade_rows(False)
     args = [v.float() for v in _args(x)]
     with pytest.raises(ValueError, match="CUDA"):
         KS.shading_forward(*args)
@@ -358,17 +235,20 @@ def test_training_render_matches_the_rendering_equation4_path(monkeypatch):
 @pytest.mark.card
 @pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
 def test_kernels_match_the_plain_version(card, edges):
-    """The kernels' pbr, diffuse light and six gradients against the plain
-    version in float64, each within twice the distance of the float32
-    plain version on the card (the same rsqrt and exp2 as the kernels) from
-    it, or 1e-6 of the output's largest magnitude; one launch of each."""
-    x, d_pbr, d_dl = _inputs(edges)
-    ref = SH.shade_train_forward_plain(*_args(x)) + \
-        SH.shade_train_backward_plain(*_args(x), d_pbr, d_dl)
+    """The kernels' pbr, diffuse light and six gradients against
+    rendering_equation4 in float64 and autograd's gradients through it,
+    each within 1.9 times the distance of the same evaluation in float32 on
+    the card from it, or 1e-6 of the output's largest magnitude; one launch
+    of each.  (Until the float32 yardstick was autograd's, it was the
+    kernels' hand-derived mirror, held at 2x; autograd's lies up to 1.03x
+    as far from float64 on these rows, so 1.9 keeps every bar.)"""
+    x, d_pbr, d_dl = shade_rows(edges)
+    pbr64, dl64, g64 = _autograd(x, d_pbr, d_dl)
+    ref = (pbr64, dl64) + g64
     xc = {k: v.float().to(card) for k, v in x.items()}
     gp, gd = d_pbr.float().to(card), d_dl.float().to(card)
-    f32 = SH.shade_train_forward_plain(*_args(xc)) + \
-        SH.shade_train_backward_plain(*_args(xc), gp, gd)
+    pbr32, dl32, g32 = _autograd(xc, gp, gd)
+    f32 = (pbr32, dl32) + g32
     kernels.reset_launches()
     leaves = {k: v.clone().requires_grad_(k in NAMES) for k, v in xc.items()}
     pbr, dl = SH.shade_train(*_args(leaves))
@@ -383,4 +263,4 @@ def test_kernels_match_the_plain_version(card, edges):
         scale = float(r.abs().max())
         e_k = float((k.double().cpu() - r).abs().max()) / scale
         e_p = float((p.double().cpu() - r).abs().max()) / scale
-        assert e_k <= max(2 * e_p, 1e-6), (name, e_k, e_p)
+        assert e_k <= max(1.9 * e_p, 1e-6), (name, e_k, e_p)

@@ -60,8 +60,10 @@ from svgir_tpu_torch.render.svgss import render_view_svgss as t_render_view
 from svgir_tpu_torch.train import optim as toptim
 from svgir_tpu_torch.train import trainer as ttrainer
 from svgir_tpu_torch.utils import graphics as TGR
+from svgir_tpu_torch.utils.transforms import normalize
 
 from tests.scenes import default_camera
+from tests.torch_kernel_inputs import SHADE_INPUTS, shade_rows
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -282,6 +284,102 @@ def test_rendering_equation4_matches_with_gradients():
                                    err_msg=k)
     for k, a, b in zip(names, tg, jg):
         _rel(a.numpy(), b, 1e-4, k)
+
+
+# rows of shade_rows(edges=True) with an input exactly on a clamp's bound:
+# there jnp.clip splits the gradient, torch.clamp passes it whole
+# (ROADMAP hazard 14)
+SHADE_TIE_ROWS = (4, 5, 6)
+
+
+def _shade_edges_met(x):
+    """Which clamp bounds the edge rows meet exactly, from the raw dot
+    products rendering_equation4 clamps, formed as it forms them."""
+    v = normalize(x["viewdirs"])[:, None]                   # [N, 1, 3]
+    lt = normalize(x["incident_dirs"])[:, :, None]          # [N, S, 1, 3]
+    h = normalize((lt + v[:, None]) / 2.0)                  # [N, S, 1, 3]
+    nn = normalize(x["normals"])                            # [N, 4, 3]
+    flip = torch.sign((v * nn).sum(-1))                     # [N, 4]
+    nf = nn * flip[..., None]
+    nol = (nf[:, None] * lt).sum(-1)                        # [N, S, 4]
+    nov = (nf * v).sum(-1)                                  # [N, 4]
+    noh = (nf[:, None] * h).sum(-1)                         # [N, S, 4]
+    voh = (v[:, None] * h).sum(-1)                          # [N, S, 1]
+    ndi = (x["normals"][:, None]
+           * x["incident_dirs"][:, :, None]).sum(-1)        # [N, S, 4]
+    rough = x["roughness"][:, None]                         # [N, 1, 4]
+    alpha2 = (rough * rough) ** 2
+    k = (rough * rough + 2 * rough + 1.0) / 8.0
+    nom0 = noh.clamp(1e-6, 1) ** 2 * (alpha2 - 1) + 1
+    nom1 = nov.clamp(1e-6, 1)[:, None] * (1 - k) + k
+    nom2 = nol.clamp(1e-6, 1) * (1 - k) + k
+    den = 4 * math.pi * nom0 * nom0 * nom1 * nom2
+    env = x["env_radiance"]
+    return {
+        "env 0": bool((env == 0).any()), "env 64": bool((env == 64).any()),
+        "env above 64": bool((env > 64).any()),
+        "transport N.L 0": bool((ndi == 0).any()),
+        "N.L 1e-6": bool((nol == 1e-6).any()),
+        "N.L 1": bool((nol == 1).any()),
+        "N.V 1e-6": bool((nov == 1e-6).any()),
+        "N.V 1": bool((nov == 1).any()),
+        "N.H 1e-6": bool((noh == 1e-6).any()),
+        "N.H 1": bool((noh == 1).any()),
+        "V.H 1": bool((voh == 1).any()),
+        "denominator 4 pi": bool((den == 4 * math.pi).any()),
+        "denominator below 1e-6": bool((den < 1e-6).any()),
+        "N.V < 0 before the flip": bool((flip < 0).any()),
+    }
+
+
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+def test_shade_train_matches_jax_in_float64(edges):
+    """shade_train on CPU tensors (rendering_equation4 under autograd)
+    against svgir_tpu's rendering_equation4 and its VJP, both in float64,
+    on tests/torch_kernel_inputs.shade_rows: pbr and diffuse light within
+    1e-13 of each one's largest magnitude on every row, the six gradients
+    within 1e-12 on every row but SHADE_TIE_ROWS of the edge set, where
+    they part as hazard 14 says."""
+    x, d_pbr, d_dl = shade_rows(edges)
+    if edges:
+        met = _shade_edges_met(x)
+        assert all(met.values()), [k for k, v in met.items() if not v]
+    names = SHADE_INPUTS[:6]
+    leaves = {k: v.clone().requires_grad_(k in names) for k, v in x.items()}
+    pbr, dl = TSH.shade_train(*(leaves[k] for k in SHADE_INPUTS))
+    grads = torch.autograd.grad((pbr * d_pbr).sum() + (dl * d_dl).sum(),
+                                [leaves[k] for k in names])
+
+    with jax.enable_x64(True):
+        jx = {k: jnp.asarray(v.numpy()) for k, v in x.items()}
+
+        def jfn(bc, rough, nrm, vd, rad, env_rad):
+            p, extra = JSH.rendering_equation4(
+                bc, rough, nrm, vd, rad, None, jx["visibility"],
+                jx["incident_dirs"], jx["incident_areas"],
+                env_radiance=env_rad)
+            return p, extra["diffuse_light"]
+
+        (jpbr, jdl), vjp = jax.vjp(jfn, *(jx[k] for k in names))
+        jgrads = vjp((jnp.asarray(d_pbr.numpy()), jnp.asarray(d_dl.numpy())))
+        jpbr, jdl = np.asarray(jpbr), np.asarray(jdl)
+        jgrads = [np.asarray(g) for g in jgrads]
+    assert jpbr.dtype == np.float64 and jgrads[0].dtype == np.float64
+    for name, a, b in (("pbr", pbr, jpbr), ("diffuse_light", dl, jdl)):
+        err = np.abs(a.detach().numpy() - b).max() / np.abs(b).max()
+        assert err < 1e-13, (name, err)
+    rows = np.ones(x["roughness"].shape[0], bool)
+    if edges:
+        rows[list(SHADE_TIE_ROWS)] = False
+    tie_gap = 0.0
+    for name, a, b in zip(names, grads, jgrads):
+        scale = np.abs(b).max()
+        assert a.shape == b.shape and scale > 0, name
+        gap = np.abs(a.numpy() - b) / scale
+        assert gap[rows].max() < 1e-12, (name, gap[rows].max())
+        tie_gap = max(tie_gap, gap[~rows].max(initial=0.0))
+    # the ties are real: the excluded rows part
+    assert (tie_gap > 1e-6) == edges, tie_gap
 
 
 def test_radiance_consistency_loss_matches(scene):

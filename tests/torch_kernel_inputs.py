@@ -1,19 +1,32 @@
 """Synthetic inputs of kernels B1 (tile counts and carry table, also on grids
 too wide for one block's shared memory), B2 (instance slots, at its edge
 cases), B3/B4 (the blend, at its edge cases) and B7 (the env-map lookup),
-made with numpy from a seed.
+made with numpy from a seed; and of the preprocess (P1) and the training
+shading (C2), made with torch from a seed, on random rows and on rows
+built to meet their edges.
 
 The CPU tests (``tests/test_torch_binning.py``,
-``tests/test_torch_blend_edges.py``, ``tests/test_torch_env_lookup.py``)
-hold the port's plain versions to the JAX kernels on them;
-``chip_smoke.py`` builds the same arrays and holds the CUDA kernels to
-their plain versions on the card.  This module imports numpy only, so the
-smoke run can use it where JAX is not installed.
+``tests/test_torch_blend_edges.py``, ``tests/test_torch_env_lookup.py``,
+``tests/test_torch_preprocess.py``, ``tests/test_torch_svgss.py``) hold
+the port's plain versions to ``svgir_tpu`` on them; ``chip_smoke.py`` and
+the ``card`` tests build the same inputs and hold the CUDA kernels to
+their plain versions on the card.  This module imports numpy, torch and
+``svgir_tpu_torch``, never JAX, so the smoke run can use it where JAX is
+not installed.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+from svgir_tpu_torch.cameras import look_at_camera
+from svgir_tpu_torch.config import RasterConfig
+from svgir_tpu_torch.ops import preprocess as P
+from svgir_tpu_torch.utils import sh as sh_utils
+from svgir_tpu_torch.utils.transforms import normal_to_rotation, normalize
 
 GAUSS_CHUNK = 256
 
@@ -332,3 +345,232 @@ def blend_edge_inputs(name: str, *, tile: int = 16, chunk: int = 128,
                 g_img=rng.normal(size=img_shape).astype(np.float32),
                 g_wsum=rng.normal(size=m).astype(np.float32), ca=ca, cv=cv,
                 grid_x=gx, grid_y=gy, tile=tile, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# the preprocess (P1): float64 rows, 256 random or one per edge
+# ---------------------------------------------------------------------------
+
+PREP_N = 256
+PREP_W, PREP_H = 64, 48
+PREP_EDGE_ROWS = ("behind", "outside", "view_cos", "grazing", "tz0",
+                  "tx_past", "ty_past", "rgb_clamp", "zero_cot_a",
+                  "zero_cot_b", "plain")
+
+# (name, cfg, colour source, SH degree, active SH degree, scale_modifier,
+#  fields whose cotangent is None): every branch P1's templates take
+PREP_CASES = [
+    ("sh3", {}, "sh", 3, None, 1.0, ()),
+    ("sh3_active1_half_scale", {}, "sh", 3, 1.0, 0.5, ()),
+    ("sh2_active0", {}, "sh", 2, 0.0, 1.0, ()),
+    ("sh1_active_none", {}, "sh", 1, -1.0, 1.0, ()),
+    ("sh0", {}, "sh", 0, None, 0.5, ()),
+    ("sh4_active2", {}, "sh", 4, 2.5, 1.0, ()),
+    ("colors", {}, "colors", 3, None, 1.0, ()),
+    ("no_colour", {}, "none", 3, None, 1.0, ("rgb",)),
+    ("no_surface", dict(surface=False), "sh", 3, None, 1.0, ()),
+    ("no_surface_half_scale", dict(surface=False), "sh", 2, None, 0.5, ()),
+    ("no_per_pixel_depth", dict(per_pixel_depth=False), "sh", 3, 2.0, 1.0,
+     ()),
+    ("none_cotangents", {}, "sh", 3, None, 1.0,
+     ("view_cos", "normal_view", "depth")),
+]
+PREP_CASE_IDS = [c[0] for c in PREP_CASES]
+
+
+def prep_camera(edges: bool):
+    """A rotated camera for the random rows; for the edge rows one on the
+    z axis, whose p_view is exact (p_view = m + (0, 0, 3), W = I)."""
+    eye = [0.0, 0.0, -3.0] if edges else [0.5, 0.4, -2.6]
+    return look_at_camera(eye=eye, target=[0, 0, 0], up=[0, -1, 0],
+                          fovx=math.pi / 3, fovy=math.pi / 3, width=PREP_W,
+                          height=PREP_H, device="cpu")
+
+
+def _unit(v):
+    return v / v.norm()
+
+
+def prep_edge_geometry():
+    """(means, quats) of the edge rows under the axis camera: behind the
+    camera, outside the 1.2x frustum, view_cos at -0.01, a grazing ray at
+    the 0.01 threshold, p_view z exactly 0, x and y past 1.3 tan(fov / 2),
+    and rows that meet nothing (the rgb clamp is met by their SH)."""
+    f64 = torch.float64
+    t = torch.tensor([0.0, 0.0, 3.0], dtype=f64)
+    pv = {"behind": [0.1, 0.1, -0.5], "outside": [4.0, 0.0, 3.0],
+          "view_cos": [0.1, 0.05, 3.0], "grazing": [0.2, -0.1, 2.5],
+          "tz0": [0.3, 0.2, 0.0], "tx_past": [2.0, 0.1, 1.0],
+          "ty_past": [0.1, -2.0, 1.0], "rgb_clamp": [0.05, 0.0, 2.0],
+          "zero_cot_a": [0.0, 0.1, 2.5], "zero_cot_b": [-0.1, 0.0, 2.8],
+          "plain": [0.05, 0.02, 3.0]}
+    means, quats = [], []
+    for name in PREP_EDGE_ROWS:
+        p = torch.tensor(pv[name], dtype=f64)
+        if name == "view_cos":
+            # n . p = -0.01
+            u = _unit(torch.linalg.cross(p, torch.tensor([0.0, 1, 0],
+                                                         dtype=f64)))
+            a = -0.01 / float(p @ p)
+            n = a * p + math.sqrt(1 - a * a * float(p @ p)) * u
+        elif name == "grazing":
+            # |(dir0 . n) / mod0| = 0.01 for the ray offset in x
+            d0 = torch.tensor([p[0] / p[2] + 1e-3, p[1] / p[2], 1.0],
+                              dtype=f64)
+            mod0 = float(d0.norm())
+            dir0 = d0 / mod0
+            u = _unit(torch.linalg.cross(dir0, torch.tensor([0.0, 1, 0],
+                                                            dtype=f64)))
+            n = -0.01 * mod0 * dir0 + math.sqrt(1 - (0.01 * mod0) ** 2) * u
+        else:
+            n = _unit(torch.tensor([0.1, -0.2, -1.0], dtype=f64))
+        means.append(p - t)
+        # a w-first quaternion whose rotation's third column is n (the
+        # axis camera's rotation is the identity)
+        quats.append(normal_to_rotation(n[None])[0] * 1.7)
+    return torch.stack(means), torch.stack(quats)
+
+
+def _dc_at(value: float) -> float:
+    """A DC coefficient c with fl(c * C0) == value, in float64."""
+    c = value / sh_utils.C0
+    for _ in range(64):
+        got = c * sh_utils.C0
+        if got == value:
+            return c
+        c = math.nextafter(c, math.inf if got < value else -math.inf)
+    raise AssertionError("no DC coefficient meets the value")
+
+
+def prep_rows(edges: bool, degree: int, seed: int = 0):
+    """(means, scales, quats, shs [N, K, 3] at K = (degree + 1)^2, colors)
+    in float64.  On the edge rows the ``rgb_clamp`` row's red channel sits
+    exactly on the clamp at 0 and its green one below it."""
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(seed)
+    k = (degree + 1) ** 2
+    if edges:
+        means, quats = prep_edge_geometry()
+        n = means.shape[0]
+    else:
+        n = PREP_N
+        d = torch.randn(n, 3, generator=g, dtype=f64)
+        means = d / d.norm(dim=-1, keepdim=True) \
+            * (0.6 + 0.6 * torch.rand(n, 1, generator=g, dtype=f64))
+        quats = torch.randn(n, 4, generator=g, dtype=f64)
+    scales = torch.exp(-3 + 0.6 * torch.randn(n, 3, generator=g, dtype=f64))
+    shs = 0.3 * torch.randn(n, k, 3, generator=g, dtype=f64)
+    colors = torch.rand(n, 3, generator=g, dtype=f64)
+    if edges:
+        r = PREP_EDGE_ROWS.index("rgb_clamp")
+        shs[r] = 0
+        shs[r, 0] = torch.tensor([_dc_at(-0.5), -0.7 / sh_utils.C0,
+                                  0.4 / sh_utils.C0], dtype=f64)
+    return means, scales, quats, shs, colors
+
+
+def prep_cotangents(out, edges: bool, seed: int = 1, none=()):
+    """Random cotangents of ``P.FLOAT_FIELDS`` of ``out``, zero on the
+    zero_cot rows (and on the first rows of the random set); None for the
+    fields in ``none``.  Returns (cotangents, the zero rows)."""
+    g = torch.Generator().manual_seed(seed)
+    zero = [PREP_EDGE_ROWS.index("zero_cot_a"),
+            PREP_EDGE_ROWS.index("zero_cot_b")] if edges else [0, 1, 2]
+    cots = []
+    for f in P.FLOAT_FIELDS:
+        if f in none:
+            cots.append(None)
+            continue
+        x = getattr(out, f)
+        c = torch.randn(x.shape, generator=g, dtype=x.dtype)
+        c[zero] = 0
+        cots.append(c)
+    return cots, zero
+
+
+def prep_kw(cam, case):
+    """``preprocess``'s keyword arguments for a camera and a PREP_CASES
+    entry (the colour source apart)."""
+    _, cfg, _, degree, active, mod, _ = case
+    return dict(width=cam.width, height=cam.height, tanfovx=cam.tanfovx,
+                tanfovy=cam.tanfovy, focal_x=cam.focal_x, focal_y=cam.focal_y,
+                sh_degree=degree, active_sh_degree=active,
+                scale_modifier=mod, cfg=RasterConfig(**cfg))
+
+
+# ---------------------------------------------------------------------------
+# the training shading (C2): float64 rows, random or on the clamps' bounds
+# ---------------------------------------------------------------------------
+
+SHADE_N, SHADE_S = 64, 8
+# shade_train's inputs in its order; the first six take a gradient
+SHADE_INPUTS = ("base_color", "roughness", "normals", "viewdirs", "radiance",
+                "env_radiance", "visibility", "incident_dirs",
+                "incident_areas")
+
+
+def shade_rows(edges: bool, seed: int = 0):
+    """(shade_train's nine inputs by name, d_pbr, d_diffuse_light) in
+    float64, SHADE_N rows at SHADE_S samples.  Random rows: base colour and
+    roughness in get_base_color's and get_roughness's ranges, unit normals
+    (half of them facing away from the view), env values in [-4, 80],
+    visibility 0 or 1.  With ``edges``, rows 0-7 meet the edges: no
+    cotangent (rows 0-1), roughness 0.09 and 0.99 (2), every vertex facing
+    away (3), env values on the clamp's bounds 0 and 64 and past them (4),
+    GGX's N.L, N.V, N.H and V.H at 1, the denominator at 4 pi and the
+    transport's N.L at 0 (5), GGX's N.L, N.V and N.H at 1e-6 (6), and the
+    denominator far below its lower bound at a specular peak (7)."""
+    f64 = torch.float64
+    n, s = SHADE_N, SHADE_S
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, dtype=f64)
+
+    def unit(*shape):
+        return normalize(torch.randn(*shape, 3, generator=g, dtype=f64))
+
+    x = {"base_color": rand(n, 12) * 0.77 + 0.03,
+         "roughness": rand(n, 4) * 0.9 + 0.09,
+         "normals": unit(n, 4), "viewdirs": unit(n),
+         "radiance": rand(n, s, 3) * 2, "env_radiance": rand(n, s, 3) * 84 - 4,
+         "visibility": (rand(n, s, 1) > 0.3).double(),
+         "incident_dirs": unit(n, s),
+         "incident_areas": torch.full((n, s, 1), 4 * math.pi / s,
+                                      dtype=f64)}
+    d_pbr = torch.randn(n, 12, generator=g, dtype=f64)
+    d_dl = torch.randn(n, 12, generator=g, dtype=f64)
+    if not edges:
+        return x, d_pbr, d_dl
+
+    def vec(*v):
+        return torch.tensor(v, dtype=f64)
+
+    z, e = (0.0, 0.0, 1.0), 1e-6
+    # |(e, 0, side)|^2 rounds to 1 + 2^-52, whose square root rounds to 1:
+    # normalize leaves the vector as it is, its x exactly 1e-6
+    side = math.nextafter(math.sqrt(1 - e * e), 2.0)
+    d_pbr[:2] = 0
+    d_dl[:2] = 0
+    x["roughness"][2] = vec(0.09, 0.99, 0.09, 0.99)
+    x["normals"][3] = -x["viewdirs"][3].expand(4, 3) + 0.1 * unit(4)
+    x["env_radiance"][4, :4] = vec(
+        (0.0, 64.0, 80.0), (64.0, 0.0, -1.0), (100.0, 64.0, 0.0),
+        (0.0, 0.0, 64.0))
+    # row 5: V = N = L at sample 0 and roughness 1; sample 1 perpendicular
+    # to the normals
+    x["viewdirs"][5] = vec(*z)
+    x["normals"][5] = vec(*z)
+    x["roughness"][5] = 1.0
+    x["incident_dirs"][5, 0] = vec(*z)
+    x["incident_dirs"][5, 1] = vec(1.0, 0.0, 0.0)
+    # row 6: V = L along x, unit normals with x = 1e-6
+    x["viewdirs"][6] = vec(1.0, 0.0, 0.0)
+    x["normals"][6] = vec(e, 0.0, side)
+    x["incident_dirs"][6, 0] = vec(1.0, 0.0, 0.0)
+    # row 7: roughness 0.09 at a specular peak; other samples around it
+    x["viewdirs"][7] = vec(*z)
+    x["normals"][7] = vec(*z)
+    x["roughness"][7] = 0.09
+    x["incident_dirs"][7, 0] = vec(*z)
+    return x, d_pbr, d_dl
