@@ -399,6 +399,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                  other variances at each.  Rows
                  ``preprocess_*_recipe_size`` (launches from phase 35's
                  stage-1 step).
+  39. gaussian rows (run at the end of 38) R1 (csrc/gaussian_rows.cu), the
+                 per-Gaussian sums of the blend backward's rows over the
+                 binner's instance lists, on the rows and lists of phase
+                 35's stage-1 and S = 64 steps and on
+                 tests/torch_kernel_inputs.gaussian_rows_inputs at K = 1,
+                 21 and 77 (524,288 rows) and with dropped entries: every
+                 Gaussian's row bit-equal to index_add_ over the Gaussian
+                 ids on the CPU, row N zero, two runs bit-equal; timed
+                 beside its byte bound, the CPU route (a zero fill and
+                 index_add_) on the card and index_add_ alone.  Rows
+                 ``gaussian_rows*``.
 
 With --recipe-tables RUN the script builds the kernels and runs only the
 recipe's tables (``recipe_tables``): B1-B4 on a step of RUN's stage-1
@@ -761,6 +772,7 @@ class Capture:
             (blend_pallas, "blend_forward", "blend_forward_tiles"),
             (blend_pallas, "blend_backward", "blend_backward_tiles"),
             (rasterizer, "bin_instances", "bin_instances"),
+            (rasterizer, "_gaussian_rows", "gaussian_rows"),
             (env_lookup_pallas, "env_lookup_forward", "env_lookup_forward"),
             (env_lookup_pallas, "env_lookup_backward",
              "env_lookup_backward")]
@@ -5178,9 +5190,10 @@ def run_recipe_size(card, dev):
     args1 = (state, optim.adam_init(state["params"]), cam, 1.0, 1.6e-4)
     cost = peak_ms(lambda: step1(*args1), "stage-1 step", card, "recipe-size")
     c1, l1, bnd1, e3, e4 = held_step(lambda: step1(*args1), "stage-1 step",
-                                     STAGE1_KERNELS)
+                                     STAGE1_KERNELS + ("gaussian_rows",))
     rows(c1, l1, bnd1, dict(binning_counts=0.0, binning_instances=0.0,
                             blend_forward=e3, blend_backward=e4), cost)
+    captured = [("stage-1 step", "", c1["gaussian_rows"][0], l1)]
     del c1, args1
 
     # ---- S = 64 --------------------------------------------------------
@@ -5195,7 +5208,8 @@ def run_recipe_size(card, dev):
     label = f"S = {BAKE_SAMPLES} step"
     cost = peak_ms(lambda: step2(*args2), label, card, "recipe-size", reps=5)
     c2, l2, bnd2, e3, e4 = held_step(lambda: step2(*args2), label,
-                                     STAGE2_KERNELS)
+                                     STAGE2_KERNELS + ("gaussian_rows",))
+    captured.append((label, f"_s{BAKE_SAMPLES}", c2["gaussian_rows"][0], l2))
     pair_launches = {k: l2[k] for k in ("consistency_forward",
                                         "consistency_backward",
                                         "shading_forward",
@@ -5220,6 +5234,8 @@ def run_recipe_size(card, dev):
     report.extend(run_shading(card, dev, alive, pair_launches))
     torch.cuda.empty_cache()
     report.extend(run_preprocess(card, dev, params, alive, cam, l1))
+    torch.cuda.empty_cache()
+    report.extend(run_gaussian_rows(card, dev, captured))
     return report
 
 
@@ -6036,6 +6052,97 @@ def run_preprocess(card, dev, params, alive, cam, launched):
     return report
 
 
+def gaussian_rows_bytes(inputs, d_inst, lists):
+    """R1's byte bound and its kept entries: the output [N+1, K] written
+    once, the kept entries' rows of d_inst, the lists and the listed slots
+    read once."""
+    import numpy as np
+    gl, slot = (t.cpu().numpy() for t in lists)
+    m, k = d_inst.shape
+    n, r = gl.shape[0], slot.shape[0]
+    first = gl[:, 0].astype(np.int64)
+    listed = int(np.clip(np.minimum(gl[:, 1], r - first), 0, None).sum())
+    kept = inputs.list_entries(gl, slot, m)[0].size
+    return 4 * ((n + 1) * k + kept * k + 2 * n + listed), kept
+
+
+def run_gaussian_rows(card, dev, captured):
+    """Phase 39: R1 (csrc/gaussian_rows.cu) on the per-instance rows and
+    instance lists of phase 35's steps (``captured``: (label, row suffix,
+    ``_gaussian_rows``' arguments, the step's launches)) and on
+    ``gaussian_rows_inputs`` at the recipe's 524,288 rows: every Gaussian's
+    row bit-equal to ``index_add_`` over the Gaussian ids on the CPU, row N
+    zero, two runs bit-equal; timed beside its byte bound, the CPU route
+    on the card (plain: a zero fill and ``index_add_``) and ``index_add_``
+    alone (library).  Returns the kernels-JSON rows."""
+    import torch
+
+    from svgir_tpu_torch.kernels import gaussian_rows as KR
+
+    t_phase = time.time()
+    inputs = kernel_inputs()
+    cases = [(label, f"gaussian_rows{suffix}_recipe_size", d, idx, lists, n,
+              launched["gaussian_rows"])
+             for label, suffix, (d, idx, lists, n), launched in captured]
+    for name in ("k1", "k21", "k77", "k77_dropped"):
+        d, lists, slot = inputs.gaussian_rows_inputs(name)
+        gid = torch.from_numpy(inputs.list_gaussian_id(lists, slot,
+                                                       d.shape[0]))
+        n = lists.shape[0]
+        idx = torch.where(gid >= 0, gid, n).long().to(dev)
+        cases.append((f"synthetic {name}", f"gaussian_rows_{name}",
+                      torch.from_numpy(d).to(dev), idx,
+                      (torch.from_numpy(lists).to(dev),
+                       torch.from_numpy(slot).to(dev)), n, 0))
+    report = []
+    for label, row_name, d, idx, lists, n, launches in cases:
+        m, k = d.shape
+        got = KR.gaussian_rows(d, *lists)
+        again = KR.gaussian_rows(d, *lists)
+        want = torch.zeros(n + 1, k).index_add_(0, idx.cpu(), d.cpu())[:n]
+        got_c = got.cpu()
+        if not torch.equal(got_c.view(torch.int32), again.cpu().view(
+                torch.int32)):
+            raise AssertionError(f"gaussian rows, {label}: two runs differ")
+        if bool(got_c[n].any()):
+            raise AssertionError(f"gaussian rows, {label}: row N not zero")
+        differ = int((got_c[:n].view(torch.int32)
+                      != want.view(torch.int32)).any(1).sum())
+        err = float((got_c[:n] - want).abs().max()) if n else 0.0
+        if differ:
+            raise AssertionError(
+                f"gaussian rows, {label}: {differ} rows differ from "
+                f"index_add_ on the CPU (max |err| {err:.3g})")
+        buf = torch.zeros(n + 1, k, device=dev)
+
+        def plain():
+            return d.new_zeros(n + 1, k).index_add_(0, idx, d)
+        t = timings(lambda: KR.gaussian_rows(d, *lists), plain,
+                    lambda: buf.index_add_(0, idx, d))
+        nbytes, kept = gaussian_rows_bytes(inputs, d, lists)
+        bnd = nbytes / HBM_BYTES_S * 1e3
+        report.append({
+            "name": row_name, "route": "cuda",
+            "source": "svgir_tpu_torch/csrc/gaussian_rows.cu",
+            "replaces": "none (svgir_tpu_torch/ops/rasterizer.py "
+                        "_gaussian_rows and _gaussian_weights: index_add_ "
+                        "over the instances' Gaussian ids)",
+            "launches": launches, "max_abs_err": err,
+            "oracle": "index_add_ on the CPU, bit for bit", **t,
+            "library": "index_add_ into a zeroed buffer",
+            "bound_ms": bnd, "bound_by": "bytes", "rows": n, "k": k,
+            "slots": m, "kept_entries": kept})
+        log(f"[gaussian-rows] {label} ({row_name}, K {k}, {n} rows, {m} "
+            f"slots, {kept} entries): bit-equal to index_add_ on the CPU, "
+            "two runs bit-equal; " + fmt_times(t, "index_add_")
+            + f", bound {bnd:.4f} ms by bytes "
+            f"({100 * bnd / t['device_ms']:.1f}%); {launches} launches in "
+            f"the step; card: {card}")
+        del got, again, want, got_c, buf
+    log(f"[gaussian-rows] {time.time() - t_phase:.1f} s; card: {card}")
+    return report
+
+
 # Each kernel's source and the TPU kernel it replaces, for the JSON rows
 # of the recipe's size.
 SOURCES = {"binning_counts": "binning.cu", "binning_instances": "binning.cu",
@@ -6577,8 +6684,8 @@ def main() -> int:
     t0 = time.time()
     build.build()
     for stem in ("binning", "blend_forward", "blend_backward", "cols",
-                 "consistency", "env_lookup", "launch_floor", "march",
-                 "preprocess", "shading"):
+                 "consistency", "env_lookup", "gaussian_rows",
+                 "launch_floor", "march", "preprocess", "shading"):
         build.library(stem)
     card = nvidia_smi()
     log(f"[build] {time.time() - t0:.1f} s; card: {card}")

@@ -51,8 +51,9 @@
 // - Per compiled width: PPT, IB and whether the chunk's rows are copied in
 //   asynchronously (cp.async, two buffers) behind the previous chunk's
 //   work (dispatch_backward).
-// The per-Gaussian scatter-add of the rows stays outside, in torch
-// (ops/rasterizer.py), as in the reference's custom VJP.
+// The per-Gaussian sums of the rows stay outside, as in the reference's
+// custom VJP: ops/rasterizer.py hands d_slab to R1 (gaussian_rows.cu),
+// which sums each Gaussian's rows over the binner's instance lists.
 #include "blend_common.cuh"
 
 // Rows of an instance that are summed, in the order of the kernel's

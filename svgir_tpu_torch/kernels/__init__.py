@@ -18,7 +18,7 @@ KERNEL_NAMES = ("binning_counts", "binning_instances", "blend_forward",
                 "pad_cols", "slice_cols", "consistency_forward",
                 "consistency_backward", "shading_forward",
                 "shading_backward", "preprocess_forward",
-                "preprocess_backward")
+                "preprocess_backward", "gaussian_rows")
 
 
 def reset_launches() -> None:

@@ -41,11 +41,20 @@ class BinnedInstances(NamedTuple):
     tile_end: torch.Tensor       # [T] int32
     num_instances: torch.Tensor  # [] int32, true count (<= M)
     overflow: torch.Tensor       # [] bool, the true count exceeded M
+    perm: torch.Tensor           # [M] int64, sorted position -> raw instance
+    gauss_lists: torch.Tensor    # [N, 2] int32, as ``PaddedInstances``'s
 
 
 class PaddedInstances(NamedTuple):
     """Chunk-aligned instance layout: each tile's run starts at a multiple of
-    ``chunk`` and is padded to a multiple of ``chunk`` with slots of id -1."""
+    ``chunk`` and is padded to a multiple of ``chunk`` with slots of id -1.
+
+    ``gauss_lists`` and ``raw_slot`` list each Gaussian's slots: Gaussian g's
+    raw instances are ``gauss_lists[g, 0]`` .. ``+ gauss_lists[g, 1]``, in
+    rect order (ascending slots), and ``raw_slot`` gives each raw
+    instance's slot.  A raw instance past R, or with a slot >= M, was
+    dropped by the cap; padding slots are in no list.  The rasterizer sums
+    the blend's per-instance rows by Gaussian over them (R1)."""
 
     gaussian_id: torch.Tensor    # [M] int32, -1 for padding slots
     inst_valid: torch.Tensor     # [M] bool
@@ -53,6 +62,8 @@ class PaddedInstances(NamedTuple):
     tile_count: torch.Tensor     # [T] int32, padded counts
     num_instances: torch.Tensor  # [] int32, total padded count (<= M)
     overflow: torch.Tensor       # [] bool
+    gauss_lists: torch.Tensor    # [N, 2] int32, (first raw instance, count)
+    raw_slot: torch.Tensor       # [R] int32, each raw instance's slot
     # [N] depth-sorted ids (-1 culled); None from the sort binner
     order: Optional[torch.Tensor] = None
 
@@ -113,7 +124,8 @@ def bin_instances(prep: Preprocessed, *, width: int, height: int,
     return BinnedInstances(
         gaussian_id=gid_s, tile_id=tile_s, inst_valid=inst_valid,
         tile_start=tile_start, tile_end=tile_end, num_instances=total,
-        overflow=overflow)
+        overflow=overflow, perm=perm,
+        gauss_lists=torch.stack([offsets, touched], 1))
 
 
 @torch.no_grad()
@@ -141,11 +153,23 @@ def pad_to_chunks(binned: BinnedInstances, *, chunk: int,
         0, binned.gaussian_id.shape[0] - 1)
     gid = torch.where(valid, binned.gaussian_id[src.long()],
                       torch.full_like(q, -1))
+
+    # the slot of each raw instance: sorted position p of tile t lands at
+    # padded_starts[t] + p - tile_start[t] (max_instances: none)
+    num_tiles = counts.shape[0]
+    t = binned.tile_id.long().clamp(max=num_tiles - 1)
+    p = torch.arange(t.shape[0], device=dev)
+    slot_p = torch.where(binned.tile_id < num_tiles,
+                         padded_starts[t] + p - binned.tile_start[t],
+                         max_instances).to(torch.int32)
+    raw_slot = torch.empty_like(slot_p)
+    raw_slot[binned.perm] = slot_p
     return PaddedInstances(
         gaussian_id=gid, inst_valid=valid,
         tile_start=padded_starts.to(torch.int32),
         tile_count=padded_counts.to(torch.int32),
-        num_instances=total, overflow=overflow)
+        num_instances=total, overflow=overflow,
+        gauss_lists=binned.gauss_lists, raw_slot=raw_slot)
 
 
 @torch.no_grad()
@@ -201,8 +225,12 @@ def bin_instances_counting(prep: Preprocessed, *, width: int, height: int,
     out_gid[slot.clamp(max=m).long()] = gid
     out_gid = out_gid[:m]
 
+    # sorted position s's raw instances are offsets[s] .. + touched[s]
+    gauss_lists = torch.empty(n, 2, dtype=i32, device=dev)
+    gauss_lists[perm] = torch.stack([offsets[:n], touched], 1)
+
     return PaddedInstances(
         gaussian_id=out_gid, inst_valid=out_gid >= 0,
         tile_start=tile_start.to(i32), tile_count=padded_counts.to(i32),
         num_instances=torch.clamp(total_padded, max=m), overflow=overflow,
-        order=order_s)
+        gauss_lists=gauss_lists, raw_slot=slot, order=order_s)

@@ -17,10 +17,15 @@ paths, chosen as it chooses them (``cfg.binner``, ``cfg.strip``):
 
 The two gather Functions are the custom-gradient boundary around the
 per-Gaussian slab gather and the blend: their backward runs the blend's
-backward kernel and scatter-adds the per-instance rows into per-Gaussian
-rows with ``index_add_``.  Everything else is plain torch differentiated by
-autograd.  (The port's B3/B4 take tile ranges in tile order, so the strip
-width itself changes nothing past choosing the path.)
+backward kernel and sums the per-instance rows into per-Gaussian rows
+(``_gaussian_rows``; the forward's weight sums likewise,
+``_gaussian_weights``).  On the card that sum is the kernel R1
+(``kernels/gaussian_rows.py``), which walks the binner's per-Gaussian
+instance lists in slot order with no atomics; on the CPU it is
+``index_add_`` over the instances' Gaussian ids, which adds in the same
+order.  Everything else is plain torch differentiated by autograd.  (The
+port's B3/B4 take tile ranges in tile order, so the strip width itself
+changes nothing past choosing the path.)
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from svgir_tpu_torch.config import RasterConfig
+from svgir_tpu_torch.kernels import gaussian_rows as KR
 from svgir_tpu_torch.ops import blend_pallas, blend_pallas_strip, common
 from svgir_tpu_torch.ops.binning import (bin_instances,
                                          bin_instances_counting,
@@ -59,7 +65,10 @@ def _gather(slab_rows, gid):
     return idx, slab_rows.index_select(0, idx)
 
 
-def _gaussian_weights(wsum, idx, n):
+def _gaussian_weights(wsum, idx, lists, n):
+    """Per-Gaussian weight sums [n] of the instances' [M]."""
+    if common.on_cuda(wsum):
+        return KR.gaussian_rows(wsum[:, None], *lists)[:n, 0]
     weights = wsum.new_zeros(n + 1)
     weights.index_add_(0, idx, wsum)
     return weights[:n]
@@ -72,8 +81,13 @@ def _instance_g_wsum(g_weights, idx):
     return g_ext.index_select(0, idx).contiguous()
 
 
-def _gaussian_rows(d_inst, idx, n):
-    """Per-Gaussian rows [n+1, KR]; padding slots land in row n."""
+def _gaussian_rows(d_inst, idx, lists, n):
+    """Per-Gaussian rows [n+1, KR] of the instances' [M, KR]: on the card
+    R1 over ``lists`` (the binner's ``gauss_lists``, ``raw_slot``), row n
+    zero; on the CPU ``index_add_`` over ``idx``, padding slots' (zero)
+    rows landing in row n."""
+    if common.on_cuda(d_inst):
+        return KR.gaussian_rows(d_inst, *lists)
     d_rows = d_inst.new_zeros(n + 1, d_inst.shape[1])
     d_rows.index_add_(0, idx, d_inst)
     return d_rows
@@ -84,36 +98,40 @@ class _BlendGather(torch.autograd.Function):
     through the image-layout blend B3/B4.
 
     ``slab_rows`` carries one extra all-zero row ``n``: padding slots
-    (gid -1) gather it, and their gradients scatter back into it, so no
-    [M, KR] select passes are needed.  ``wgrad=False`` drops the weights
-    cotangent (the reference's out_weights buffer is not differentiable);
-    ``need_weights=False`` skips the weight sums altogether.
+    (gid -1) gather it, and its gradient row is zero on the card (R1)
+    and the padding slots' zero rows on the CPU, so no [M, KR] select
+    passes are needed.  ``gauss_lists`` and ``raw_slot`` are the binner's
+    per-Gaussian instance lists, which the per-Gaussian sums walk on the
+    card.  ``wgrad=False`` drops the weights cotangent (the reference's
+    out_weights buffer is not differentiable); ``need_weights=False``
+    skips the weight sums altogether.
     """
 
     @staticmethod
-    def forward(ctx, slab_rows, gid, tile_start, tile_count, kw, wgrad,
-                need_weights):
+    def forward(ctx, slab_rows, gid, tile_start, tile_count, gauss_lists,
+                raw_slot, kw, wgrad, need_weights):
         n = slab_rows.shape[0] - 1
         idx, slab = _gather(slab_rows, gid)
         img, eff, wsum = blend_pallas_strip.blend_forward(
             slab, tile_start, tile_count, emit_wsum=need_weights, **kw)
-        weights = _gaussian_weights(wsum, idx, n) if need_weights \
+        lists = (gauss_lists, raw_slot)
+        weights = _gaussian_weights(wsum, idx, lists, n) if need_weights \
             else slab_rows.new_zeros(n)
-        ctx.save_for_backward(slab, idx, tile_start, img, eff)
+        ctx.save_for_backward(slab, idx, tile_start, img, eff, *lists)
         ctx.kw, ctx.wgrad, ctx.n = kw, wgrad, n
         return img, weights
 
     @staticmethod
     def backward(ctx, g_img, g_weights):
-        slab, idx, tile_start, img, eff = ctx.saved_tensors
+        slab, idx, tile_start, img, eff, *lists = ctx.saved_tensors
         kw = ctx.kw
         with profiling.span("svgir.blend.bwd"):
             g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
             d_inst = blend_pallas_strip.blend_backward(
                 slab, tile_start, eff, g_img.contiguous(),
                 img[kw["ca"] + kw["cv"]], g_wsum, **kw)
-            return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None,
-                    None, None, None)
+            return (_gaussian_rows(d_inst, idx, lists, ctx.n),) \
+                + (None,) * 8
 
 
 class _BlendGatherTiles(torch.autograd.Function):
@@ -122,29 +140,30 @@ class _BlendGatherTiles(torch.autograd.Function):
     CA+CV+3, tile**2], per-Gaussian weights [n]) through B5/B6."""
 
     @staticmethod
-    def forward(ctx, slab_rows, gid, tile_start, tile_count, kw, wgrad,
-                need_weights):
+    def forward(ctx, slab_rows, gid, tile_start, tile_count, gauss_lists,
+                raw_slot, kw, wgrad, need_weights):
         n = slab_rows.shape[0] - 1
         idx, slab = _gather(slab_rows, gid)
         out, wsum = blend_pallas.blend_forward(
             slab, tile_start, tile_count, emit_wsum=need_weights, **kw)
-        weights = _gaussian_weights(wsum, idx, n) if need_weights \
+        lists = (gauss_lists, raw_slot)
+        weights = _gaussian_weights(wsum, idx, lists, n) if need_weights \
             else slab_rows.new_zeros(n)
-        ctx.save_for_backward(slab, idx, tile_start, out)
+        ctx.save_for_backward(slab, idx, tile_start, out, *lists)
         ctx.kw, ctx.wgrad, ctx.n = kw, wgrad, n
         return out, weights
 
     @staticmethod
     def backward(ctx, g_out, g_weights):
-        slab, idx, tile_start, out = ctx.saved_tensors
+        slab, idx, tile_start, out, *lists = ctx.saved_tensors
         kw = ctx.kw
         with profiling.span("svgir.blend.bwd"):
             g_wsum = _instance_g_wsum(g_weights, idx) if ctx.wgrad else None
             meta = out[:, kw["ca"] + kw["cv"]:].contiguous()
             d_inst = blend_pallas.blend_backward(
                 slab, tile_start, g_out.contiguous(), meta, g_wsum, **kw)
-            return (_gaussian_rows(d_inst, idx, ctx.n), None, None, None,
-                    None, None, None)
+            return (_gaussian_rows(d_inst, idx, lists, ctx.n),) \
+                + (None,) * 8
 
 
 def _pack_slab(prep: Preprocessed, opacity: torch.Tensor,
@@ -263,12 +282,13 @@ def rasterize(
         tile_start, tile_count = _clamp_runs(padded, cfg.max_instances,
                                              cfg.chunk)
         strip = cfg.strip if padded.order is not None else 0
-        # one extra all-zero row: padding slots (gid -1) gather it and
-        # their gradients scatter back into it
+        # one extra all-zero row: padding slots (gid -1) gather it
         slab_ext = torch.cat([slab_g, slab_g.new_zeros(1, slab_g.shape[1])])
         blend = _BlendGather if strip else _BlendGatherTiles
         out, weights = blend.apply(slab_ext, padded.gaussian_id, tile_start,
-                                   tile_count, kw, weights_grad, need_weights)
+                                   tile_count, padded.gauss_lists,
+                                   padded.raw_slot, kw, weights_grad,
+                                   need_weights)
     # strip > 0 blends into image layout; else assemble the tile blocks
     img_p = out if strip else blend_pallas.to_image(out, grid_x, grid_y,
                                                     tile)

@@ -238,8 +238,8 @@ def rasterize_sharded(mesh, axis: str, means3d, scales, quats, opacity,
         # one extra all-zero row: padding slots (gid -1) gather it
         slab_ext = torch.cat([slab, slab.new_zeros(1, kr)])
         out, weights = _BlendGatherTiles.apply(
-            slab_ext, padded.gaussian_id, tile_start, tile_count, kw, True,
-            True)
+            slab_ext, padded.gaussian_id, tile_start, tile_count,
+            padded.gauss_lists, padded.raw_slot, kw, True, True)
         return out, weights, padded.overflow
 
     if exchange_cap is None:

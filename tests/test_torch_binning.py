@@ -30,6 +30,7 @@ from svgir_tpu_torch.ops.preprocess import Preprocessed as TPrep
 
 from tests.torch_kernel_inputs import (INSTANCE_CASES, RECT_CASES,
                                        instance_inputs, instances_from_rects,
+                                       list_entries, list_sums,
                                        synthetic_rects, wide_grid_rects)
 
 
@@ -300,3 +301,39 @@ def test_bin_instances_counting_exact(case, cap):
         np.testing.assert_array_equal(getattr(tr, f).numpy(),
                                       np.asarray(getattr(jr, f)), err_msg=f)
     assert bool(tr.overflow) == (cap == 1 << 9)
+
+
+def hold_instance_lists(padded, m, seed=0):
+    """A binner's per-Gaussian instance lists (``gauss_lists``,
+    ``raw_slot``) against its layout: every slot with a Gaussian in exactly
+    one list, its Gaussian's; each list in ascending slot order; no padding
+    or dropped slot listed; R1's sum over them (``list_sums``) equal to
+    ``index_add_`` over ``gaussian_id`` bit for bit on random rows.  Returns
+    the kept (Gaussian, slot) pairs and the number of entries listed before
+    the caps dropped any."""
+    lists, raw = padded.gauss_lists.numpy(), padded.raw_slot.numpy()
+    gid = padded.gaussian_id.numpy()
+    n = lists.shape[0]
+    g, _, q = list_entries(lists, raw, m)
+    np.testing.assert_array_equal(np.sort(q), np.nonzero(gid >= 0)[0])
+    np.testing.assert_array_equal(gid[q], g)
+    same = g[1:] == g[:-1]
+    assert (q[1:][same] > q[:-1][same]).all()
+    d = torch.randn(m, 21, generator=torch.Generator().manual_seed(seed))
+    want = d.new_zeros(n + 1, 21).index_add_(
+        0, torch.where(padded.gaussian_id >= 0, padded.gaussian_id,
+                       n).long(), d)
+    got = torch.from_numpy(list_sums(d.numpy(), lists, raw))
+    assert torch.equal(got[:n].view(torch.int32), want[:n].view(torch.int32))
+    return np.stack([g, q], 1), int(lists[:, 1].sum())
+
+
+@pytest.mark.parametrize("cap", [1 << 15, 1 << 9])
+def test_counting_binner_instance_lists(case, cap):
+    """The counting binner's per-Gaussian instance lists (R1's input), with
+    a roomy cap and with one that overflows and drops instances."""
+    tr = tbin.bin_instances_counting(
+        _to_torch(case["prep"]), width=case["w"], height=case["h"],
+        cfg=TCfg(tile=case["tile"], max_instances=cap))
+    pairs, listed = hold_instance_lists(tr, cap)
+    assert (len(pairs) < listed) == bool(tr.overflow)

@@ -14,6 +14,7 @@ from svgir_tpu_torch.kernels import blend as KBL
 from svgir_tpu_torch.kernels import build
 from svgir_tpu_torch.kernels import cols as KC
 from svgir_tpu_torch.kernels import env_lookup as KE
+from svgir_tpu_torch.kernels import gaussian_rows as KR
 from svgir_tpu_torch.kernels import march as KM
 from svgir_tpu_torch.ops import binning_pallas, blend_pallas, blend_pallas_strip
 
@@ -135,13 +136,19 @@ REFUSALS = {
     "march_k": (lambda: KM.march(*_march_args()[0],
                                  **_march_args(k=KM.MAX_K + 1)[1]),
                 "hits per ray"),
+    "gaussian_rows_cpu": (lambda: KR.gaussian_rows(
+        torch.zeros(8, 21), torch.zeros(4, 2, dtype=torch.int32),
+        torch.zeros(8, dtype=torch.int32)), "CUDA"),
+    "gaussian_rows_no_column": (lambda: KR.gaussian_rows(
+        torch.zeros(8, 0), torch.zeros(4, 2, dtype=torch.int32),
+        torch.zeros(8, dtype=torch.int32)), "K >= 1"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_wrappers_refuse_cpu_tensors_and_bad_shapes(name):
     """With their C entry points configured once and cached, the wrappers
-    of B1, B7 and B8 still refuse CPU tensors and what the kernels do not
+    of B1, B7, B8 and R1 still refuse CPU tensors and what the kernels do not
     take, before anything is built or launched."""
     call, match = REFUSALS[name]
     kernels.reset_launches()
@@ -254,8 +261,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert sorted(build._targets()) == ["binning", "blend_backward",
                                         "blend_forward", "cols",
                                         "consistency", "env_lookup",
-                                        "launch_floor", "march",
-                                        "preprocess", "shading"]
+                                        "gaussian_rows", "launch_floor",
+                                        "march", "preprocess", "shading"]
     assert not (tmp_path / "_build").exists() or \
         not list((tmp_path / "_build").glob("*.so"))
 

@@ -32,7 +32,7 @@ from svgir_tpu_torch.ops import binning as tbin
 
 from tests.test_binning_equivalence import big_splat_scene
 from tests.test_torch_binning import _prep as _prep_eager
-from tests.test_torch_binning import _to_torch
+from tests.test_torch_binning import _to_torch, hold_instance_lists
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,3 +150,18 @@ def test_sort_binner_equals_counting_binner(binned):
         np.testing.assert_array_equal(getattr(r["tpad"], f).numpy(),
                                       getattr(r["counting"], f).numpy(),
                                       err_msg=f"{name}: {f}")
+
+
+def test_sort_binner_instance_lists(binned):
+    """The sort binner's per-Gaussian instance lists (R1's input) against
+    its layout, and (where nothing overflows) the same (Gaussian, slot)
+    pairs as the counting binner's."""
+    name, r = binned
+    cap = CASES[name]["cap"]
+    pairs, listed = hold_instance_lists(r["tpad"], cap)
+    assert (len(pairs) < listed) == (name == "overflow_cap128")
+    if name != "overflow_cap128":
+        counting, _ = hold_instance_lists(r["counting"], cap)
+        order = np.lexsort((pairs[:, 1], pairs[:, 0]))
+        c_order = np.lexsort((counting[:, 1], counting[:, 0]))
+        np.testing.assert_array_equal(pairs[order], counting[c_order])

@@ -1,9 +1,10 @@
 """Synthetic inputs of kernels B1 (tile counts and carry table, also on grids
 too wide for one block's shared memory), B2 (instance slots, at its edge
-cases), B3/B4 (the blend, at its edge cases) and B7 (the env-map lookup),
-made with numpy from a seed; and of the preprocess (P1) and the training
-shading (C2), made with torch from a seed, on random rows and on rows
-built to meet their edges.
+cases), B3/B4 (the blend, at its edge cases), B7 (the env-map lookup) and
+R1 (the per-Gaussian row sums over the binner's instance lists), made with
+numpy from a seed; and of the preprocess (P1) and the training shading
+(C2), made with torch from a seed, on random rows and on rows built to
+meet their edges.
 
 The CPU tests (``tests/test_torch_binning.py``,
 ``tests/test_torch_blend_edges.py``, ``tests/test_torch_env_lookup.py``,
@@ -574,3 +575,86 @@ def shade_rows(edges: bool, seed: int = 0):
     x["roughness"][7] = 0.09
     x["incident_dirs"][7, 0] = vec(*z)
     return x, d_pbr, d_dl
+
+
+# ---------------------------------------------------------------------------
+# the per-Gaussian row sums (R1): per-Gaussian instance lists
+# ---------------------------------------------------------------------------
+
+# name -> (rows N, row width K, dropped: raw instances past R and slots past
+# M); the recipe's size: 524,288 rows, half of them alive, K 1 (the
+# weight sums), 21 (stage 1) and 77 (stage 2, CA 13 / CV 13)
+ROWS_CASES = {"k1": (524_288, 1, False), "k21": (524_288, 21, False),
+              "k77": (524_288, 77, False), "k77_dropped": (524_288, 77, True),
+              "empty": (4096, 21, False)}
+
+
+def gaussian_rows_inputs(name: str, seed: int = 0, n=None):
+    """(d_inst [M, K] f32, gauss_lists [N, 2] int32, raw_slot [R] int32) as a
+    counting binner lays them out: the raw instances run list by list in a
+    random (depth) order of the Gaussians; half of the rows are alive, 45%
+    of those have no instance and the rest 1 to 12 (most 1-2); each list's
+    slots are distinct and ascending, drawn from [0, 1.3 x instances) (the
+    rest: padding).  With dropping, R is 90% of the raw instances and M 80%
+    of the slots' range.  "empty": every list empty and R = 0.  ``n``
+    overrides the rows (the CPU tests take a small size)."""
+    rows, k, dropped = ROWS_CASES[name]
+    n = rows if n is None else n
+    rng = np.random.default_rng(seed)
+    count = np.zeros(n, np.int64)
+    alive = rng.random(n) < 0.5
+    some = alive & (rng.random(n) >= 0.45)
+    count[some] = np.minimum(rng.geometric(0.55, int(some.sum())), 12)
+    if name == "empty":
+        count[:] = 0
+    order = rng.permutation(n)                     # raw order of the lists
+    first = np.empty(n, np.int64)
+    first[order] = np.cumsum(count[order]) - count[order]
+    total = int(count.sum())
+    span = max(int(total * 1.3), 1024)
+    slot = rng.choice(span, total, replace=False)
+    owner = np.repeat(np.arange(n), count[order])       # list position
+    slot = slot[np.lexsort((slot, owner))]               # ascending a list
+    m, r = span, total
+    if dropped:
+        m, r = int(span * 0.8), int(total * 0.9)
+    d_inst = rng.standard_normal((m, k)).astype(np.float32)
+    lists = np.stack([first, count], 1).astype(np.int32)
+    return d_inst, lists, slot[:r].astype(np.int32)
+
+
+def list_entries(gauss_lists, raw_slot, m: int):
+    """The kept entries of per-Gaussian instance lists, in list order:
+    (Gaussian [E], rank in its list [E], slot [E]) int64 arrays.  Entries
+    past ``raw_slot``'s end or with a slot outside [0, m) are dropped."""
+    first = np.asarray(gauss_lists[:, 0], np.int64)
+    count = np.asarray(gauss_lists[:, 1], np.int64)
+    raw_slot = np.asarray(raw_slot, np.int64)
+    count = np.clip(np.minimum(count, raw_slot.shape[0] - first), 0, None)
+    g = np.repeat(np.arange(first.shape[0]), count)
+    rank = np.arange(g.size) - np.repeat(np.cumsum(count) - count, count)
+    q = raw_slot[first[g] + rank]
+    keep = (q >= 0) & (q < m)
+    return g[keep], rank[keep], q[keep]
+
+
+def list_gaussian_id(gauss_lists, raw_slot, m: int):
+    """[m] int64: the Gaussian whose list holds each slot, -1 for slots in
+    no list (padding), as the binner's ``gaussian_id``."""
+    g, _, q = list_entries(gauss_lists, raw_slot, m)
+    gid = np.full(m, -1, np.int64)
+    gid[q] = g
+    return gid
+
+
+def list_sums(d_inst, gauss_lists, raw_slot):
+    """R1's sum in numpy: [N+1, K] float32, row g the rows of ``d_inst`` at
+    the slots of g's list added in list order onto 0, row N zero."""
+    d_inst = np.asarray(d_inst, np.float32)
+    n = gauss_lists.shape[0]
+    g, rank, q = list_entries(gauss_lists, raw_slot, d_inst.shape[0])
+    out = np.zeros((n + 1, d_inst.shape[1]), np.float32)
+    for level in np.unique(rank):            # each list's entries in order
+        at = rank == level
+        out[g[at]] += d_inst[q[at]]
+    return out
